@@ -1,0 +1,74 @@
+"""Public kernel entry points: dispatch on the operands' device.
+
+A CPU tensor goes to the kernel's plain PyTorch version (the CPU path and
+the oracle); a CUDA tensor goes to the hand-written Hopper kernel, which
+launches or raises.  Nothing falls back from one to the other.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import attention as _attn
+from . import dtv as _dtv
+from . import verify as _verify
+
+COUNTERS = (_attn.COUNTER, _verify.COUNTER, _dtv.STATS_COUNTER,
+            _dtv.DTV_COUNTER)
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"kernel operands on unsupported or mixed devices: "
+                     f"{sorted(kinds)}")
+
+
+def launch_counts() -> Dict[str, int]:
+    return {c.name: c.count for c in COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS:
+        c.count = 0
+
+
+def paged_decode_attention(q: torch.Tensor, k_flat: torch.Tensor,
+                           v_flat: torch.Tensor, block_table: torch.Tensor,
+                           mask: torch.Tensor,
+                           block_size: int) -> torch.Tensor:
+    """Paged flash-decode over a block pool.  q: (B, T, H, D); k_flat,
+    v_flat: (P·bs, Hkv, D) — one layer of ``PagedModelState``'s flat
+    pools; block_table: (B, R) with -1 for unallocated row blocks; mask:
+    (B, T, R·bs) per-query validity -> (B, T, H, D).  T=1 is decode, T>1
+    a verify or prefill block."""
+    if _on_cuda(q, k_flat, v_flat, block_table, mask):
+        return _attn.paged_attention_cuda(q, k_flat, v_flat, block_table,
+                                          mask, block_size)
+    return _attn.paged_attention_plain(q, k_flat, v_flat, block_table, mask,
+                                       block_size)
+
+
+def verify_row_stats(logits: torch.Tensor, cand: torch.Tensor):
+    """logits (R, V); cand (R,) -> (argmax, max, sumexp, cand_logit)."""
+    if _on_cuda(logits, cand):
+        return _verify.verify_stats_triton(logits, cand)
+    return _verify.verify_stats_plain(logits, cand)
+
+
+def softmax_stats(logits: torch.Tensor):
+    """(R, V) -> (max (R,), sumexp (R,))."""
+    if _on_cuda(logits):
+        return _dtv.softmax_stats_triton(logits)
+    return _dtv.softmax_stats_plain(logits)
+
+
+def dtv(a_logits: torch.Tensor, b_logits: torch.Tensor) -> torch.Tensor:
+    """(R, V) x2 -> (R,) total variation distance (paper Eq. 5)."""
+    if _on_cuda(a_logits, b_logits):
+        return _dtv.dtv_triton(a_logits, b_logits)
+    return _dtv.dtv_plain(a_logits, b_logits)

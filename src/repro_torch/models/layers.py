@@ -1,0 +1,106 @@
+"""Core neural layers (``repro.models.layers``, dense subset) as plain
+functions over parameter dictionaries of tensors.
+
+Layouts follow the JAX package so both can be compared on the same inputs:
+linear weights are (in, out), attention tensors (B, T, H, D).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device)
+                  ** exponent)
+
+
+def rope_tables(positions: torch.Tensor, theta: float, head_dim: int):
+    """(cos, sin) each (B, T, 1, D/2) for ``apply_rope``.  Invalid entries
+    carry the append's far-future sentinel position; their values are
+    finite and never attended."""
+    ang = (positions.float()[..., None]
+           * rope_freqs(head_dim, theta, positions.device))
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, H, D) rotate-half RoPE in fp32, returned in x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def build_attention_mask(cache_mask: torch.Tensor, kv_positions: torch.Tensor,
+                         q_positions: torch.Tensor) -> torch.Tensor:
+    """The paper's Eq. 8: logical validity -> (B, T, S) attention mask.
+
+    cache_mask (B, S) bool, kv_positions (B, S) logical position per slot,
+    q_positions (B, T).  Invalid slots are ignored although their data
+    physically exists — that is what makes logical rollback free."""
+    valid = cache_mask[:, None, :]
+    causal = kv_positions[:, None, :] <= q_positions[:, :, None]
+    return valid & causal
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,T,H,D); k,v: (B,S,Hkv,D); mask: (B,T,S) -> (B,T,H,D).
+    Fully masked rows give zeros, not NaN."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, T, Hkv, g, D).float()
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, None, :, :],
+                                torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    any_valid = mask.any(dim=-1)[:, None, None, :, None]
+    probs = torch.where(any_valid, probs, 0.0)
+    out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def swiglu(p: Dict[str, Params], x: torch.Tensor) -> torch.Tensor:
+    return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+
+
+def attention_qkv(p: Dict[str, Params], x: torch.Tensor, cfg):
+    """x: (B,T,d) -> q (B,T,H,hd), k, v (B,T,Hkv,hd)."""
+    B, T, _ = x.shape
+    q = linear(p["q"], x).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = linear(p["k"], x).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(p["v"], x).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def attention_out(p: Dict[str, Params], o: torch.Tensor) -> torch.Tensor:
+    B, T, H, D = o.shape
+    return linear(p["o"], o.reshape(B, T, H * D))
