@@ -14,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.config import ModelConfig
 
 
@@ -44,11 +45,13 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cpu") -> Dict[str, Any]:
+                    device="cuda") -> Dict[str, Any]:
     """Reference parameter pytree (numpy leaves) -> the port's parameter
-    dictionary.  Raises on a missing, extra or misshapen leaf: a leaf the
-    port does not know (biases, extra norms) belongs to a feature it does
-    not run."""
+    dictionary on ``device`` (the card unless the caller asks for the
+    CPU).  Raises on a missing, extra or misshapen leaf: a leaf the port
+    does not know (biases, extra norms) belongs to a feature it does not
+    run."""
+    device = resolve_device(device)
     flat = _flatten(np_tree)
     want = _expected_shapes(cfg)
     if set(flat) != set(want):

@@ -1,6 +1,7 @@
+from ..device import resolve_device
 from .chain_router import ChainRouter, GenerationResult, RouterSession
 from .executor import Executor
-from .model_pool import ModelPool, PoolEntry, resolve_device
+from .model_pool import ModelPool, PoolEntry
 from .profiler import EMA, PerformanceProfiler
 from .scheduler import ChainChoice, ModelChainScheduler
 from .similarity import SimilarityStore

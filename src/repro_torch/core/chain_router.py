@@ -36,11 +36,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops
 from . import verification as ver
 from .executor import (DraftRequest, Executor, InsertRequest, PrefillRequest,
                        RollbackRequest, VerifyRequest)
-from .model_pool import ModelPool, resolve_device
+from .model_pool import ModelPool
 from .profiler import PerformanceProfiler
 from .scheduler import ChainChoice, ModelChainScheduler
 from .similarity import SimilarityStore

@@ -5,23 +5,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
-import torch
-
+from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.model import LanguageModel
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The port's entry points run on the card unless the caller asks for
-    the CPU; asking for CUDA on a host without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available: pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels on the host")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 @dataclasses.dataclass

@@ -124,7 +124,7 @@ def softmax_stats_triton(logits: torch.Tensor):
 def dtv_from_stats_triton(a_logits, b_logits, ma, sa, mb, sb):
     """Launch the |p − q| kernel on rows whose normalizers are known."""
     check_rows(a_logits, b_logits, ma, sa, mb, sb)
-    check_rows(b_logits)
+    check_rows(b_logits)          # the call above checks only b's device
     if a_logits.shape != b_logits.shape:
         raise ValueError(f"dtv rows differ in shape: {tuple(a_logits.shape)} "
                          f"vs {tuple(b_logits.shape)}")

@@ -72,8 +72,8 @@ class PagedModelState:
 
 def make_paged_state(batch: int, max_len: int, layers: Dict[str, Any],
                      block_size: int = PAGE_BLOCK,
-                     pool_blocks: Optional[int] = None,
-                     device="cpu") -> PagedModelState:
+                     pool_blocks: Optional[int] = None, *,
+                     device) -> PagedModelState:
     """Per-row capacity rounds ``max_len`` up to whole blocks; the pool
     defaults to full provisioning (batch * blocks_per_row)."""
     R = ceil_div(max_len, block_size)
@@ -96,8 +96,8 @@ def make_paged_state(batch: int, max_len: int, layers: Dict[str, Any],
 
 
 def make_paged_attn_cache(num_layers: int, pool_blocks: int, block_size: int,
-                          num_kv_heads: int, head_dim: int, dtype,
-                          device="cpu") -> Dict[str, torch.Tensor]:
+                          num_kv_heads: int, head_dim: int, dtype, *,
+                          device) -> Dict[str, torch.Tensor]:
     shape = (num_layers, pool_blocks * block_size, num_kv_heads, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -32,7 +32,7 @@ def _normal(shape, scale, cfg, generator, device):
 
 
 def init(cfg: ModelConfig, generator: torch.Generator,
-         device="cpu") -> Dict[str, Any]:
+         device) -> Dict[str, Any]:
     """Random weights with the reference's scales (embeddings 0.02,
     linears 1/sqrt(fan_in), norms 1), drawn on ``device`` from
     ``generator`` — no download."""
@@ -93,7 +93,7 @@ def _block(pl, cfg: ModelConfig, x, *, k_pool, v_pool, mask, rope, plan,
 
 def make_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      block_size: int = kvc.PAGE_BLOCK,
-                     pool_blocks: Optional[int] = None, device="cpu"):
+                     pool_blocks: Optional[int] = None, *, device):
     R = kvc.ceil_div(max_len, block_size)
     P = pool_blocks if pool_blocks is not None else batch * R
     return kvc.make_paged_attn_cache(cfg.num_layers, P, block_size,

@@ -31,7 +31,7 @@ def quickstart_pools():
     for name, layers, d, seed in QUICKSTART:
         jc, tc = configs(name, layers, d)
         jp, axes = JaxLM(jc).init(jax.random.PRNGKey(seed))
-        tp = params_from_jax(jax.tree.map(np.asarray, jp), tc)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
         jpool.register(jc, params=jp, param_axes=axes)
         tpool.register(tc, params=tp)
         params[name] = (jp, tp)

@@ -23,11 +23,12 @@ def _states(B, max_len, bs, pool_blocks):
     R = -(-max_len // bs)
     P = pool_blocks if pool_blocks is not None else B * R
     jlayers = jkv.make_paged_attn_cache(L, P, bs, HKV, D, jnp.float32)
-    tlayers = tkv.make_paged_attn_cache(L, P, bs, HKV, D, torch.float32)
+    tlayers = tkv.make_paged_attn_cache(L, P, bs, HKV, D, torch.float32,
+                                        device="cpu")
     return (jkv.make_paged_state(B, max_len, jlayers, block_size=bs,
                                  pool_blocks=pool_blocks),
             tkv.make_paged_state(B, max_len, tlayers, block_size=bs,
-                                 pool_blocks=pool_blocks))
+                                 pool_blocks=pool_blocks, device="cpu"))
 
 
 def _append(js, ts, tokens, valid, rng):

@@ -27,11 +27,11 @@ def test_prefill_decode_verify_logits_match_reference(name, layers, d, seed):
     jlm, tlm = JaxLM(jc), LanguageModel(tc)
     jprefill, jdecode = jax.jit(jlm.prefill), jax.jit(jlm.decode)
     jp, _ = jlm.init(jax.random.PRNGKey(seed))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
     rng = np.random.default_rng(seed)
     B, max_len = 2, 48
     js, _ = jlm.make_state(B, max_len, paged=True)
-    ts = tlm.make_state(B, max_len)
+    ts = tlm.make_state(B, max_len, device="cpu")
 
     prompt = rng.integers(0, VOCAB, size=(B, 8)).astype(np.int32)
     valid = np.ones((B, 8), bool)
@@ -70,7 +70,26 @@ def test_conversion_rejects_leaves_of_unported_features():
     tree = jax.tree.map(np.asarray, jp)
     tree["blocks"]["attn"]["q"]["b"] = np.zeros((2, 32), np.float32)
     with pytest.raises(ValueError, match="unexpected"):
-        params_from_jax(tree, tc)
+        params_from_jax(tree, tc, device="cpu")
+
+
+def test_default_device_is_the_card():
+    """With no device given, the facade and the conversion put their
+    tensors on the card, and raise on a host without one."""
+    jc, tc = configs("target-l", 2, 32)
+    lm = LanguageModel(tc)
+    tree = jax.tree.map(np.asarray, JaxLM(jc).init(jax.random.PRNGKey(0))[0])
+    card = torch.cuda.is_available()
+    gen = torch.Generator("cuda" if card else "cpu").manual_seed(0)
+    made = {"state": lambda: lm.make_state(1, 16).token_buf,
+            "params": lambda: params_from_jax(tree, tc)["embed"],
+            "init": lambda: lm.init(gen)["embed"]}
+    for name, make in made.items():
+        if card:
+            assert make().device.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
 
 
 def test_unported_model_paths_raise():
