@@ -1,8 +1,10 @@
 """ChainRouter (``repro.core.chain_router``, paper §4.1): coordination of
-the multi-level speculative loop (Listing 1), linear greedy per-op path.
+the multi-level speculative loop (Listing 1), greedy per-op path, linear
+or token-tree, on the paged or the contiguous state.
 
-Per cycle:
-  1. the chain + window come from the ModelChainScheduler (Eq. 7);
+Per linear cycle:
+  1. the chain + window (or tree shape) come from the ModelChainScheduler
+     (Eq. 7);
   2. DraftRequest to M_1 (with a per-model gap catch-up prefix);
   3. VerifyRequest to M_2 … M_t, splicing corrected candidates between
      levels (§4.3);
@@ -10,6 +12,10 @@ Per cycle:
      min(k_j, …, k_N);
   5. commit the target-accepted tokens + bonus/correction, then apply
      budget/EOS termination.
+
+A tree cycle (``_one_tree_cycle``) drafts a token tree instead, lets each
+intermediate level prune the sub-trees it rejects, verifies the survivors
+in one target pass and settles every model's tree block by consensus.
 
 State sync invariant: a model's cache holds exactly ``seq[:seq_len-1]``
 per row once its gap is caught up; gaps (consensus < k_N) are re-fed as
@@ -20,10 +26,8 @@ the masked prefix of its next block.
 lazy chain membership: a slot holds state only in its chain's models.
 ``ChainRouter.generate`` is a bulk wrapper over one session.
 
-Not ported in this slice, and rejected with NotImplementedError: the
-fused device-resident cycle (``fused=True``), sampling (``greedy=False``),
-token trees (``tree_shapes`` / ``fixed_tree``) and the contiguous state
-(``paged=False``).
+Not ported, and rejected with NotImplementedError: the fused
+device-resident cycle (``fused=True``) and sampling (``greedy=False``).
 """
 from __future__ import annotations
 
@@ -39,13 +43,15 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from . import verification as ver
-from .executor import (DraftRequest, Executor, InsertRequest, PrefillRequest,
-                       RollbackRequest, VerifyRequest)
+from .executor import (DraftRequest, DraftTreeRequest, Executor,
+                       InsertRequest, PrefillRequest, ResolveTreeRequest,
+                       RollbackRequest, VerifyRequest, VerifyTreeRequest)
 from .model_pool import ModelPool
 from .profiler import PerformanceProfiler
 from .scheduler import ChainChoice, ModelChainScheduler
 from .similarity import SimilarityStore
 from .state_manager import StateManager
+from .token_tree import TokenTree
 
 
 def probe_dtv_rows(logits: Dict[str, torch.Tensor]
@@ -102,10 +108,7 @@ class ChainRouter:
                  device="cuda"):
         for flag, what in ((fused, "the fused device-resident cycle "
                                    "(fused=True)"),
-                           (not greedy, "sampling (greedy=False)"),
-                           (bool(tree_shapes) or fixed_tree is not None,
-                            "token-tree speculation"),
-                           (not paged, "the contiguous state (paged=False)")):
+                           (not greedy, "sampling (greedy=False)")):
             if flag:
                 raise NotImplementedError(f"{what} is not ported")
         self.device = resolve_device(device)
@@ -114,6 +117,7 @@ class ChainRouter:
                              f"for {self.device}")
         self.pool = pool
         self.target = target
+        self.paged = paged
         self.eos = eos_token
         self.adaptive = adaptive
         self.fixed_chain = tuple(fixed_chain) if fixed_chain else None
@@ -124,16 +128,38 @@ class ChainRouter:
             if self.fixed_chain[-1] != target:
                 raise ValueError("fixed_chain must end with the target")
         self.fixed_window = fixed_window
+        # token-tree speculation: the scheduler may pick one of
+        # ``tree_shapes`` for a chain of tree-capable models, or
+        # ``fixed_tree`` forces one (branching-1 shapes equal linear)
+        tree_ok = {m: pool.cfg(m).supports_tree for m in pool.names()}
+        self.tree_shapes = tuple(TokenTree.parse(t) for t in tree_shapes)
+        self.fixed_tree = (TokenTree.parse(fixed_tree)
+                           if fixed_tree is not None else None)
+        if self.fixed_tree is not None:
+            if self.fixed_chain is None or len(self.fixed_chain) < 2:
+                raise ValueError("fixed_tree needs a fixed_chain with a "
+                                 "draft model (give the adaptive scheduler "
+                                 "tree_shapes instead)")
+            bad = [m for m in self.fixed_chain if not tree_ok[m]]
+            if bad:
+                raise ValueError(f"models {bad} cannot decode token trees")
         self.profiler = PerformanceProfiler()
         self.states = StateManager()
         self.executor = Executor(pool, self.states, self.profiler)
         self.sims = SimilarityStore()
         self.scheduler = ModelChainScheduler(
             pool.names(), target, self.profiler, self.sims,
-            pool.capability(), max_chain_len=max_chain_len, windows=windows)
-        # static gap-prefix bound and per-cycle appended block bound
-        self.gcap = max(windows) + max_chain_len + 2
-        self.max_block = max(windows)
+            pool.capability(), max_chain_len=max_chain_len, windows=windows,
+            tree_shapes=self.tree_shapes, tree_capable=tree_ok)
+        # static gap-prefix bound (a tree cycle can leave laggard levels up
+        # to its depth behind) and per-cycle appended block bound (a tree
+        # appends all N nodes in one cycle)
+        trees = self.tree_shapes + ((self.fixed_tree,)
+                                    if self.fixed_tree else ())
+        depth_max = max((t.depth_levels for t in trees), default=0)
+        self.gcap = max(max(windows), depth_max) + max_chain_len + 2
+        self.max_block = max(max(windows),
+                             max((t.num_nodes for t in trees), default=0))
 
     # ------------------------------------------------------------------
     def _prefill_model(self, m: str, request_id: str, seq: np.ndarray,
@@ -149,7 +175,7 @@ class ChainRouter:
         valid = np.arange(S)[None, :] < (eff_len - 1)[:, None]
         logits, _sid = self.executor.prefill(PrefillRequest(
             model=m, request_id=request_id, tokens=seq.astype(np.int32),
-            valid=valid, max_len=max_len))
+            valid=valid, max_len=max_len, paged=self.paged))
         return logits
 
     def _gap_prefix(self, m: str, request_id: str, seq, seq_len, active):
@@ -179,24 +205,35 @@ class ChainRouter:
                          seq, seq_len, max_len,
                          rows: Optional[np.ndarray] = None,
                          state_rows: Optional[np.ndarray] = None) -> None:
-        """Block accounting: every appending row (``rows``; None = all)
-        must fit ``needed`` more entries in its row capacity and the pool
-        must hold enough free blocks; otherwise the state is rebuilt from
-        the committed stream (scoped to ``state_rows``).  With the default
-        full provisioning this never trips."""
+        """Guard against running out of slots before ``needed`` more
+        entries are appended.  Paged: block accounting — every appending
+        row (``rows``; None = all) must fit in its row capacity and the pool
+        must hold enough free blocks (with the default full provisioning
+        this never trips).  Contiguous: the shared pointer advances for
+        every row, so ``rows`` does not apply; force-defragment the masked
+        holes first.  The last resort for both is a rebuild from the
+        committed stream, scoped to ``state_rows``."""
         sid = StateManager.key(m, request_id)
         st = self.states.get(sid)
-        sel = (np.ones(st.batch, bool) if rows is None
-               else np.asarray(rows, bool))
-        if not sel.any():
-            return
-        wp = st.write_ptr.cpu().numpy()[sel]
-        nb = st.num_blocks.cpu().numpy()[sel]
-        high = wp + needed
-        new_blocks = np.maximum(-(-high // st.block_size) - nb, 0)
-        if (high.max() <= st.capacity
-                and int(new_blocks.sum()) <= int(st.free_top.cpu())):
-            return
+        if not self.paged:
+            if st.write_ptr + needed <= st.capacity:
+                return
+            self.states.defragment(sid)
+            self.profiler.count(f"defrag.{m}")
+            if self.states.get(sid).write_ptr + needed <= st.capacity:
+                return
+        else:
+            sel = (np.ones(st.batch, bool) if rows is None
+                   else np.asarray(rows, bool))
+            if not sel.any():
+                return
+            wp = st.write_ptr.cpu().numpy()[sel]
+            nb = st.num_blocks.cpu().numpy()[sel]
+            high = wp + needed
+            new_blocks = np.maximum(-(-high // st.block_size) - nb, 0)
+            if (high.max() <= st.capacity
+                    and int(new_blocks.sum()) <= int(st.free_top.cpu())):
+                return
         self.states.release(sid)
         self._prefill_model(m, request_id, seq, seq_len, max_len,
                             rows=state_rows)
@@ -381,9 +418,14 @@ class ChainRouter:
                    seq: np.ndarray, seq_len: np.ndarray,
                    active: np.ndarray,
                    members: Dict[str, np.ndarray],
-                   slot_keys: Sequence[str]) -> np.ndarray:
+                   slot_keys: Sequence[str],
+                   tree: Optional[TokenTree] = None) -> np.ndarray:
         """One speculative cycle; mutates seq/seq_len in place and returns
-        the per-row committed token counts."""
+        the per-row committed token counts.  A ``tree`` routes a chain with
+        a draft model through ``_one_tree_cycle``."""
+        if tree is not None and len(chain) > 1:
+            return self._one_tree_cycle(chain, tree, request_id, seq,
+                                        seq_len, active, members, slot_keys)
         B = seq.shape[0]
         max_len = self.states.get(
             StateManager.key(self.target, request_id)).capacity
@@ -456,6 +498,87 @@ class ChainRouter:
         self.profiler.count("committed", float(n_committed.sum()))
         return n_committed
 
+    def _one_tree_cycle(self, chain: Tuple[str, ...], tree: TokenTree,
+                        request_id: str, seq: np.ndarray,
+                        seq_len: np.ndarray, active: np.ndarray,
+                        members: Dict[str, np.ndarray],
+                        slot_keys: Sequence[str]) -> np.ndarray:
+        """One tree cycle (SpecInfer-style):
+
+          1. the draft model emits a token tree, level by level, under the
+             static ancestor mask;
+          2. every intermediate model verifies the whole tree in one pass
+             and prunes the sub-trees it rejects;
+          3. the target's merged pass accepts the deepest surviving
+             root-to-leaf prefix and yields the correction/bonus token;
+          4. every model settles its tree block by consensus (ResolveTree,
+             the tree RollbackProcessor).
+
+        Pruning only drops candidates, so the committed stream stays the
+        target-only greedy stream."""
+        B = seq.shape[0]
+        N = tree.num_nodes
+        max_len = self.states.get(
+            StateManager.key(self.target, request_id)).capacity
+        prefixes = self._sync_chain(chain, request_id, self.gcap + 2 + N,
+                                    seq, seq_len, active, max_len,
+                                    members=members)
+
+        # --- draft the tree ------------------------------------------------
+        m1 = chain[0]
+        pfx, pval = prefixes[m1]
+        cand, cprobs = self.executor.draft_tree(DraftTreeRequest(
+            model=m1, request_id=request_id, prefix_tokens=pfx,
+            prefix_valid=pval, tree=tree, active=active))
+
+        # --- per-level prune, then the target's merged verify --------------
+        node_valid = np.broadcast_to(active[:, None], (B, N)).copy()
+        accepts: List[torch.Tensor] = []
+        producer = m1
+        res = None
+        for m in chain[1:]:
+            pfx, pval = prefixes[m]
+            res = self.executor.verify_tree(VerifyTreeRequest(
+                model=m, request_id=request_id, prefix_tokens=pfx,
+                prefix_valid=pval, tree=tree, candidates=cand,
+                candidate_probs=cprobs, node_valid=node_valid,
+                active=active))
+            accepts.append(res.accept)
+            k = res.num_accepted.cpu().numpy()
+            if active.any():
+                # every level verifies the draft's distributions, so the
+                # DTV belongs to the (draft, this verifier) pair
+                dtv = res.dtv.cpu().numpy()
+                self.sims.update(m1, m, float(np.mean(dtv[active])))
+                self._observe_slots(slot_keys, m1, m, dtv, active)
+            self.profiler.count(f"accept.{producer}->{m}",
+                                float(np.sum(k[active])))
+            if m != chain[-1]:    # prune the sub-trees this level rejected
+                node_valid = node_valid & res.accept.cpu().numpy()
+            producer = m
+
+        k_N = res.num_accepted.cpu().numpy()
+        path = res.path_nodes.cpu().numpy()
+        next_token = res.next_token.cpu().numpy()
+
+        # --- consensus resolve: level j keeps the winning-path prefix that
+        # it and every deeper level accepted --------------------------------
+        keeps = ver.tree_consensus_keep(
+            accepts, res.path_nodes, res.num_accepted,
+            torch.as_tensor(active, device=self.device)).cpu().numpy()
+        for j, m in enumerate(chain):
+            self.executor.resolve_tree(ResolveTreeRequest(
+                model=m, request_id=request_id, tree=tree, path_nodes=path,
+                keep_len=keeps[j], active=active))
+
+        # --- commit the winning path + correction/bonus --------------------
+        path_tokens = np.take_along_axis(cand, path, axis=1)     # (B, D)
+        n_committed = np.where(active, k_N + 1, 0)
+        self._commit_rows(seq, seq_len, active, path_tokens, k_N, next_token)
+        self.profiler.count("cycles")
+        self.profiler.count("committed", float(n_committed.sum()))
+        return n_committed
+
 
 class RouterSession:
     """Slot-level continuous-batching handle.
@@ -463,9 +586,10 @@ class RouterSession:
         QUEUED --admit()--> PREFILL --> DECODING --retire()--> DONE
 
     ``admit`` assigns the slot a chain (scheduler choice, or an explicit
-    ``chain=``) and materializes its row only in that chain's models;
-    ``run_cycle`` groups active slots by (chain, window) and runs one
-    masked sub-cycle per group; ``retire`` frees exactly the member rows."""
+    ``chain=``/``window=``/``tree=``) and materializes its row only in that
+    chain's models; ``run_cycle`` groups active slots by (chain, window,
+    tree) and runs one masked sub-cycle per group; ``retire`` frees
+    exactly the member rows."""
 
     def __init__(self, router: ChainRouter, num_slots: int, max_len: int,
                  session_id: str = "sess0"):
@@ -495,7 +619,9 @@ class RouterSession:
 
     def _fixed_choice(self) -> ChainChoice:
         r = self.router
-        return ChainChoice(r.fixed_chain, r.fixed_window or 4, 0.0)
+        w = (r.fixed_tree.depth_levels if r.fixed_tree is not None
+             else (r.fixed_window or 4))
+        return ChainChoice(r.fixed_chain, w, 0.0, tree=r.fixed_tree)
 
     def _choose(self, slot: int) -> ChainChoice:
         r = self.router
@@ -568,12 +694,13 @@ class RouterSession:
 
     def admit(self, slot: int, prompt: np.ndarray, max_new_tokens: int,
               chain: Optional[Sequence[str]] = None,
-              window: Optional[int] = None) -> float:
+              window: Optional[int] = None, tree=None) -> float:
         """Admit a request into a free slot: assign its chain, write its
         prompt, catch-up-prefill the chain members only, and probe their
-        next-token distributions for similarity.  Returns the admission
-        wall time.  Raises ValueError, before touching slot state, when
-        the request cannot fit the slot row."""
+        next-token distributions for similarity.  An explicit ``chain``
+        (with ``window`` or a ``tree`` shape) pins the slot's routing.
+        Returns the admission wall time.  Raises ValueError, before
+        touching slot state, when the request cannot fit the slot row."""
         if self.occupied[slot]:
             raise ValueError(f"slot {slot} is occupied")
         prompt = np.asarray(prompt)
@@ -597,7 +724,13 @@ class RouterSession:
                                  f"target {r.target!r}, not repeat a model "
                                  f"and name pool models (unknown: "
                                  f"{unknown})")
-            choice = ChainChoice(chain, window or (r.fixed_window or 4), 0.0)
+            tr = TokenTree.parse(tree) if tree is not None else None
+            if tr is not None and (len(chain) < 2 or not all(
+                    r.pool.cfg(m).supports_tree for m in chain)):
+                raise ValueError(f"tree {tr} needs a chain of tree-capable "
+                                 f"models with a draft model, got {chain}")
+            choice = ChainChoice(chain, window or (r.fixed_window or 4), 0.0,
+                                 tree=tr)
         t0 = _time.perf_counter()
         self.seq[slot, :] = 0
         self.seq[slot, :Lp] = prompt
@@ -676,8 +809,8 @@ class RouterSession:
 
     def run_cycle(self) -> CycleReport:
         """One speculative cycle over every active slot: slots grouped by
-        (chain, window), one masked sub-cycle per group, then per-slot
-        budget/EOS termination."""
+        (chain, window, tree shape), one masked sub-cycle per group, then
+        per-slot budget/EOS termination."""
         r = self.router
         B = self.num_slots
         if not self.active.any():
@@ -686,21 +819,22 @@ class RouterSession:
         groups: Dict[tuple, np.ndarray] = {}
         for s in np.where(self.active)[0]:
             c = self._slot_choice[s]
-            groups.setdefault((c.chain, c.window), np.zeros(B, bool))[s] = True
+            key = (c.chain, c.window, c.tree)
+            groups.setdefault(key, np.zeros(B, bool))[s] = True
         slot_keys = [self._skey(s) for s in range(B)]
         pre_active = self.active.copy()
         gen_before = (self.seq_len - self.prompt_len).copy()
         n_acc = np.zeros(B, np.int64)
         ginfo: List[Tuple[Tuple[str, ...], int, int]] = []
         t0 = _time.perf_counter()
-        for (chain, window), gmask in groups.items():
+        for (chain, window, tree), gmask in groups.items():
             gmask = gmask & self.active
             if not gmask.any():
                 continue
             self._ensure_members(chain, gmask)
             acc = r._one_cycle(chain, window, self.session_id, self.seq,
                                self.seq_len, gmask, members=self._members,
-                               slot_keys=slot_keys)
+                               slot_keys=slot_keys, tree=tree)
             n_acc += np.asarray(acc, np.int64)   # groups are row-disjoint
             self.chain_history.append((chain, window))
             ginfo.append((chain, window, int(gmask.sum())))

@@ -1,33 +1,40 @@
 """StateManager (``repro.core.state_manager``, paper §4.4): lifecycle and
-replace-on-success updates of per-model paged states.
+replace-on-success updates of per-model states, paged or contiguous.
 
 Each op returns a new state and ``update`` swaps it in, so a failed
 processor call never leaves a half-updated registry entry (the paper's
 atomic rollback).  The KV pools inside a state are written in place by
 the forward; only the index buffers are replaced.  ``_lock`` guards the
-registry's read-modify-write sequences.
+registry's read-modify-write sequences.  Contiguous states leak masked
+holes (divergent acceptance, dead tree branches, retired rows) that
+``defragment`` compacts; paged rows cannot leak holes into each
+other, so it is a no-op for them.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
-from ..models.kv_cache import PagedModelState, paged_free_rows
+from ..models import kv_cache as kvc
+from ..models.kv_cache import ModelState, PagedModelState
+
+State = Union[PagedModelState, ModelState]
 
 
 class StateManager:
     def __init__(self):
-        self._states: Dict[str, PagedModelState] = {}
+        self._states: Dict[str, State] = {}
         self._lock = threading.Lock()
+        self.defrag_count = 0
 
-    def create(self, state_id: str, state: PagedModelState) -> None:
+    def create(self, state_id: str, state: State) -> None:
         with self._lock:
             self._states[state_id] = state
 
-    def get(self, state_id: str) -> PagedModelState:
+    def get(self, state_id: str) -> State:
         with self._lock:
             return self._states[state_id]
 
@@ -35,7 +42,7 @@ class StateManager:
         with self._lock:
             return state_id in self._states
 
-    def update(self, state_id: str, state: PagedModelState) -> None:
+    def update(self, state_id: str, state: State) -> None:
         with self._lock:
             self._states[state_id] = state
 
@@ -50,11 +57,24 @@ class StateManager:
                 self._states.pop(k)
 
     def free_rows(self, state_id: str, rows: np.ndarray) -> None:
-        """Retire slot rows: their blocks return to the pool in O(1)."""
+        """Retire slot rows: paged blocks return to the pool in O(1);
+        contiguous rows are released logically (masked, length 0)."""
         with self._lock:
             st = self._states[state_id]
-            self._states[state_id] = paged_free_rows(
+            self._states[state_id] = kvc.free_rows(
                 st, torch.as_tensor(np.asarray(rows, bool), device=st.device))
+
+    def defragment(self, state_id: str) -> bool:
+        """Compact a contiguous state's masked holes (the router calls it
+        under capacity pressure).  Returns whether it ran; never for paged
+        states."""
+        with self._lock:
+            st = self._states[state_id]
+            if isinstance(st, PagedModelState):
+                return False
+            self._states[state_id] = kvc.defragment(st)
+            self.defrag_count += 1
+            return True
 
     def lengths(self, state_id: str) -> np.ndarray:
         with self._lock:

@@ -1,5 +1,5 @@
-"""Linear greedy verification (``repro.core.verification``, paper §2.2
-step 3, §4.3 VerifyProcessor).
+"""Greedy verification (``repro.core.verification``, paper §2.2 step 3,
+§4.3 VerifyProcessor): linear candidate blocks and token trees.
 
 Protocol invariant (every model in the chain):
   - a model's committed cache EXCLUDES the most recent committed token
@@ -15,10 +15,16 @@ Greedy: accept iff candidate == argmax(verifier logits); the output stream
 is bit-identical to target-only greedy decoding (paper §5).  The argmax
 and the softmax normalizers come from one pass of the verify-stats kernel
 (``ops.verify_row_stats``).
+
+Token trees (SpecInfer-style, one merged verify pass): a node is accepted
+iff its token is the verifier's argmax at its parent's row and its whole
+root path is accepted; the deepest accepted root-to-leaf prefix commits,
+plus the correction/bonus token.  At most one child per node can match
+the argmax, so the committed stream is again target-only greedy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -72,6 +78,82 @@ def verify_greedy(candidates: torch.Tensor, verifier_logits: torch.Tensor,
                         next_probs, r.to(torch.int32), dtv)
 
 
+class TreeVerifyResult(NamedTuple):
+    """Outcome of verifying one token tree.  The verify pass feeds
+    ``[gap…, t_last, node_0 … node_{N-1}]`` and keeps rows ``l_0 … l_N``:
+    ``l_0`` verifies the roots, ``l_{i+1}`` is the distribution after node
+    ``i`` (verifies its children, or is the bonus row)."""
+    accept: torch.Tensor         # (B, N) bool — path-closed per-node accept
+    num_accepted: torch.Tensor   # (B,) int32 — accepted depth k on the path
+    path_nodes: torch.Tensor     # (B, D) int32 — winning root->leaf node ids
+    next_token: torch.Tensor     # (B,) int32 — correction (k<D) / bonus
+    next_probs: torch.Tensor     # (B, V) — distribution of next_token's row
+    dtv: torch.Tensor            # (B,) float32 — mean TV p vs q over nodes
+
+
+def _path_closure(attend: torch.Tensor, match: torch.Tensor) -> torch.Tensor:
+    """accept[b, i] = every ancestor-or-self of node i matched; ``attend``
+    is the tree's static (N, N) ancestor-or-self matrix."""
+    return (~attend[None] | match[:, None, :]).all(dim=-1)
+
+
+def _best_path(paths: torch.Tensor, accept: torch.Tensor):
+    """(L, D) static paths + (B, N) accept -> (k (B,), path_nodes (B, D)):
+    the deepest accepted root-to-leaf prefix, ties to the first leaf."""
+    acc_on_path = accept[:, paths].to(torch.int32)              # (B, L, D)
+    depth_acc = torch.cumprod(acc_on_path, dim=-1).sum(dim=-1)  # (B, L)
+    k, best_leaf = depth_acc.max(dim=-1)                        # first max
+    return k.to(torch.int32), paths[best_leaf]
+
+
+def verify_tree(tree, candidates: torch.Tensor,
+                verifier_logits: torch.Tensor, node_valid: torch.Tensor,
+                candidate_probs: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None) -> TreeVerifyResult:
+    """Greedy tree verification.  candidates (B, N) node tokens in tree
+    order; verifier_logits (B, N+1, V) per the TreeVerifyResult rows;
+    node_valid (B, N) — False for nodes an earlier chain level pruned
+    (force-rejected); candidate_probs (B, N, V) each node's producer
+    distribution, used only for the DTV metric; active (B,) masks rows
+    that sat the cycle out."""
+    B, N = candidates.shape
+    D = tree.depth_levels
+    V = verifier_logits.shape[-1]
+    dev = candidates.device
+    parent_rows = torch.as_tensor(tree.parent + 1, device=dev).long()
+    attend = torch.as_tensor(tree.attend, device=dev)
+    paths = torch.as_tensor(tree.paths, device=dev).long()
+    rows = verifier_logits.reshape(B * (N + 1), V)
+    am, m, s, _ = ops.verify_row_stats(
+        rows, torch.zeros(B * (N + 1), dtype=torch.int32, device=dev))
+    preds = am.reshape(B, N + 1).long()
+    match = (candidates.long() == preds[:, parent_rows]) & node_valid
+    accept = _path_closure(attend, match)
+    k, path_nodes = _best_path(paths, accept)
+    last = torch.gather(path_nodes, 1,
+                        (k.long() - 1).clamp(0, D - 1)[:, None])[:, 0]
+    pos = torch.where(k > 0, last + 1, 0)                       # bonus row
+    next_token = torch.gather(preds, 1, pos[:, None])[:, 0]
+    at = torch.arange(B, device=dev) * (N + 1) + pos
+    next_probs = torch.exp(rows[at].float() - m[at, None]) / s[at, None]
+    if candidate_probs is not None:
+        mp = m.reshape(B, N + 1)[:, parent_rows, None]
+        sp = s.reshape(B, N + 1)[:, parent_rows, None]
+        p_par = torch.exp(verifier_logits[:, parent_rows].float() - mp) / sp
+        d = dtv_probs(p_par, candidate_probs.float())            # (B, N)
+        nv = node_valid.float()
+        dtv = (d * nv).sum(dim=-1) / nv.sum(dim=-1).clamp(min=1.0)
+    else:
+        dtv = torch.zeros((B,), dtype=torch.float32, device=dev)
+    if active is not None:
+        k = torch.where(active, k, 0)
+        next_token = torch.where(active, next_token, 0)
+        accept = accept & active[:, None]
+    return TreeVerifyResult(accept, k.to(torch.int32),
+                            path_nodes.to(torch.int32),
+                            next_token.to(torch.int32), next_probs, dtv)
+
+
 def consensus_rollbacks(ks_arr: torch.Tensor, window: int,
                         active: torch.Tensor) -> torch.Tensor:
     """Per-level rollback lengths for a linear chain.
@@ -86,6 +168,26 @@ def consensus_rollbacks(ks_arr: torch.Tensor, window: int,
         consensus = ks_arr[j - 1:].amin(dim=0)
         out.append(torch.where(active, tc_j - consensus.clamp(max=tc_j), 0))
     return torch.stack(out).to(torch.int32)
+
+
+def tree_consensus_keep(accepts: Sequence[torch.Tensor],
+                        path_nodes: torch.Tensor, k_n: torch.Tensor,
+                        active: torch.Tensor) -> torch.Tensor:
+    """Consensus keep-lengths for a tree cycle: chain position j keeps the
+    winning-path prefix that it and every deeper level accepted (the draft
+    at j = 0 keeps the min over all levels).  accepts: per verify level a
+    (B, N) path-closed accept matrix; path_nodes (B, D) the target's
+    winning path; k_n (B,) its accepted depth.  Returns (len(chain), B)
+    int32, inactive rows 0."""
+    counts = []
+    for acc in accepts:
+        onpath = torch.gather(acc.to(torch.int32), 1, path_nodes.long())
+        counts.append(torch.minimum(torch.cumprod(onpath, dim=1).sum(dim=1),
+                                    k_n.to(torch.int64)))
+    carr = torch.stack(counts)                                   # (N-1, B)
+    outs = [torch.where(active, carr[max(j - 1, 0):].amin(dim=0), 0)
+            for j in range(len(accepts) + 1)]
+    return torch.stack(outs).to(torch.int32)
 
 
 def splice_candidates(candidates: torch.Tensor,

@@ -28,7 +28,8 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                       # guards _source_locks
+_source_locks: Dict[str, threading.Lock] = {}  # one build at a time per source
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report per source (registers, shared memory, spills)
 BUILD_LOGS: Dict[str, str] = {}
@@ -56,14 +57,20 @@ def _nvcc() -> str:
 
 
 def load_cuda_library(source_name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source_name>`` for sm_90a (once per source content)
-    and return the loaded library."""
+    """Compile ``csrc/<source_name>`` for sm_90a (once per content of the
+    source and the shared headers) and return the loaded library.
+    Different sources may build concurrently from several threads."""
     with _lock:
+        lock = _source_locks.setdefault(source_name, threading.Lock())
+    with lock:
         lib = _libs.get(source_name)
         if lib is not None:
             return lib
         src = CSRC_DIR / source_name
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:12]
         out = BUILD_DIR / f"{src.stem}_{digest}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -15,7 +15,8 @@ from . import dtv as _dtv
 from . import verify as _verify
 
 COUNTERS = (_attn.COUNTER, _verify.COUNTER, _dtv.STATS_COUNTER,
-            _dtv.DTV_COUNTER)
+            _dtv.DTV_COUNTER, _attn.DECODE_COUNTER, _attn.TREE_COUNTER,
+            _verify.TOPK_COUNTER)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -51,6 +52,35 @@ def paged_decode_attention(q: torch.Tensor, k_flat: torch.Tensor,
                                           mask, block_size)
     return _attn.paged_attention_plain(q, k_flat, v_flat, block_table, mask,
                                        block_size)
+
+
+def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """One-token GQA flash-decode over a contiguous cache.  q: (B, H, D);
+    k, v: (B, S, Hkv, D) — one layer of the contiguous ``ModelState``;
+    mask: (B, S) validity -> (B, H, D)."""
+    if _on_cuda(q, k, v, mask):
+        return _attn.masked_decode_attention_cuda(q, k, v, mask)
+    return _attn.masked_decode_attention_plain(q, k, v, mask)
+
+
+def masked_tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """T-query flash-decode over a contiguous cache with per-query mask
+    rows.  q: (B, T, H, D); k, v: (B, S, Hkv, D); mask: (B, T, S) ->
+    (B, T, H, D).  Prefill, verify blocks and token-tree levels."""
+    if _on_cuda(q, k, v, mask):
+        return _attn.masked_tree_attention_cuda(q, k, v, mask)
+    return _attn.masked_tree_attention_plain(q, k, v, mask)
+
+
+def draft_topk(logits: torch.Tensor, k: int):
+    """(R, V) -> (values (R, k) f32, indices (R, k) int32), ties to the
+    first maximal index: every parent's k greedy children in one pass."""
+    if _on_cuda(logits):
+        return _verify.topk_triton(logits, k)
+    return _verify.topk_plain(logits, k)
 
 
 def verify_row_stats(logits: torch.Tensor, cand: torch.Tensor):

@@ -35,6 +35,12 @@ class ModelConfig:
                 f"{self.name}: num_heads={self.num_heads} not a multiple of "
                 f"num_kv_heads={self.num_kv_heads}")
 
+    @property
+    def supports_tree(self) -> bool:
+        """Tree-structured speculation needs per-position KV that can mask
+        dead branches; recurrent carries (SSM/hybrid) cannot branch."""
+        return self.arch_type in ("dense", "moe", "audio", "vlm")
+
     def param_count(self) -> int:
         """Analytic parameter count (the scheduler's capability order)."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size

@@ -1,23 +1,37 @@
-"""Paged model state (``repro.models.kv_cache``, paged part): per-row block
-tables over a shared pool of fixed-size KV blocks.
+"""Model states (``repro.models.kv_cache``): the paper's synchronized
+state abstraction (§4.4) in its two layouts.
+
+Both keep the logical buffers
 
   token_buf    (B, S) int32  — cache_tokens (paper §4.4)
-  pos_buf      (B, S) int32  — logical position stored in each row-local slot
+  pos_buf      (B, S) int32  — logical position stored in each slot
   mask         (B, S) bool   — cache_mask: logical validity (paper Eq. 8)
   length       (B,)   int32  — logical sequence length per row
+
+``PagedModelState`` (the serving default) adds per-row block tables over a
+shared pool of fixed-size KV blocks:
+
   write_ptr    (B,)   int32  — per-row append cursor (row-local slot)
   block_table  (B, R) int32  — row-local block -> pool block id (-1 free)
   num_blocks   (B,)   int32  — allocated blocks per row
   free_stack   (P,)   int32  — LIFO free list of pool block ids
   free_top     ()     int32  — number of free blocks
 
-Per-layer attention pools are flat ``(L, P·bs, Hkv, hd)`` tensors; rows
-address them through the block table.  The index buffers are replaced
-functionally (every op returns a new state, as in the reference), while
-the pools are written in place: copying a multi-GB pool per step would
-dominate serving memory traffic.  Writes the reference drops (its
-``mode="drop"`` scatters) land in a spare column that is sliced away, so
-no op synchronizes with the host.
+and per-layer attention pools are flat ``(L, P·bs, Hkv, hd)`` tensors.
+``ModelState`` (contiguous, ``paged=False``) has one shared append
+pointer ``write_ptr`` — a host integer, since every append slices the
+per-layer ``(L, B, S, Hkv, hd)`` caches at it — and rewinds it past the
+invalid suffix common to all rows (the reference's Eq. 9 adaptation);
+holes left by divergent acceptance or dead tree branches stay masked
+until ``defragment`` compacts them.
+
+The index buffers are replaced functionally (every op returns a new
+state, as in the reference), while the KV tensors are written in place:
+copying a multi-GB cache per step would dominate serving memory traffic.
+Writes the reference drops (its ``mode="drop"`` scatters) land in a spare
+column that is sliced away; where the reference's ``dynamic_slice`` /
+``dynamic_update_slice`` would clamp an out-of-range start, the port
+raises instead.
 """
 from __future__ import annotations
 
@@ -113,11 +127,28 @@ def _scatter_cols(buf: torch.Tensor, cols: torch.Tensor,
     return ext.scatter(1, safe, vals.to(buf.dtype))[:, :W]
 
 
-def _append_positions(state: PagedModelState, valid: torch.Tensor):
-    """(q_pos (B, T) with invalid -> far-future, adv (B,) length advance)."""
-    q_pos = (state.length[:, None]
-             + torch.cumsum(valid.to(torch.int32), dim=1) - 1)
-    adv = valid.sum(dim=1, dtype=torch.int32)
+def _append_positions(state, valid: torch.Tensor,
+                      spec_depth: Optional[torch.Tensor] = None):
+    """(q_pos (B, T) with invalid -> far-future, adv (B,) length advance).
+
+    ``spec_depth`` (T,) marks speculative tree entries: -1 is a committed
+    stream token (cumulative position, advances ``length``); d >= 0 is a
+    tree node at depth d, placed at post-linear length + d (siblings share
+    a position), which does not advance ``length`` — ``resolve_tree``
+    settles the block later."""
+    if spec_depth is None:
+        q_pos = (state.length[:, None]
+                 + torch.cumsum(valid.to(torch.int32), dim=1) - 1)
+        adv = valid.sum(dim=1, dtype=torch.int32)
+    else:
+        is_lin = (spec_depth < 0)[None, :]
+        lin_valid = valid & is_lin
+        lin_pos = (state.length[:, None]
+                   + torch.cumsum(lin_valid.to(torch.int32), dim=1) - 1)
+        adv = lin_valid.sum(dim=1, dtype=torch.int32)
+        base = state.length + adv
+        spec_pos = base[:, None] + spec_depth.clamp(min=0)[None, :]
+        q_pos = torch.where(is_lin, lin_pos, spec_pos)
     return torch.where(valid, q_pos, BIG).to(torch.int32), adv
 
 
@@ -169,12 +200,13 @@ def _push_free_blocks(state: PagedModelState,
 
 
 def paged_append_tokens(state: PagedModelState, tokens: torch.Tensor,
-                        valid: torch.Tensor):
+                        valid: torch.Tensor,
+                        spec_depth: Optional[torch.Tensor] = None):
     """Per-row append: each row writes only its valid entries, contiguously
     at its own cursor, allocating blocks as needed.  Returns (new_state,
     q_pos (B, T), slots (B, T) row-local, invalid -> sentinel)."""
     B, T = tokens.shape
-    q_pos, adv = _append_positions(state, valid)
+    q_pos, adv = _append_positions(state, valid, spec_depth)
     cnt = torch.cumsum(valid.to(torch.int32), dim=1)
     n_valid = cnt[:, -1]
     state = _alloc_blocks(state, n_valid,
@@ -286,3 +318,248 @@ def paged_free_rows(state: PagedModelState,
 
 def blocks_in_use(state: PagedModelState) -> torch.Tensor:
     return state.pool_blocks - state.free_top
+
+
+# ---------------------------------------------------------------------------
+# Token-tree settlement (both layouts)
+# ---------------------------------------------------------------------------
+def tree_region_cols(state: PagedModelState, num_region: int,
+                     appended: torch.Tensor) -> torch.Tensor:
+    """Row-local slots of the speculative tree region: the last
+    ``num_region`` entries each appending row wrote (a draft level's
+    region spans slots of the cycle's earlier level appends, so it comes
+    from the post-append cursor).  Rows that appended nothing get the
+    far-future sentinel, which the overlay skips."""
+    cols = (state.write_ptr[:, None] - num_region
+            + torch.arange(num_region, dtype=torch.int32,
+                           device=state.device)[None, :])
+    return torch.where(appended.to(torch.bool)[:, None], cols, BIG)
+
+
+def path_keep_matrix(path_nodes: torch.Tensor, keep_len: torch.Tensor,
+                     num_nodes: int, depth_levels: int) -> torch.Tensor:
+    """(B, D) winning-path node ids + (B,) consensus depth -> (B, N) bool
+    keep matrix for ``resolve_tree``: True for the first ``keep_len``
+    nodes along the path."""
+    dev = path_nodes.device
+    depth_ok = (torch.arange(depth_levels, dtype=torch.int32,
+                             device=dev)[None, :] < keep_len[:, None])
+    onehot = ((path_nodes[..., None].long()
+               == torch.arange(num_nodes, device=dev)[None, None, :])
+              & depth_ok[..., None])                             # (B, D, N)
+    return onehot.any(dim=1)
+
+
+def paged_resolve_tree(state: PagedModelState, num_nodes: int,
+                       keep: torch.Tensor, add_len: torch.Tensor,
+                       active: torch.Tensor) -> PagedModelState:
+    """Settle the tree block of each active row — its last ``num_nodes``
+    row-local slots: keep the winning-path nodes, mask the dead branches,
+    advance ``length`` by the kept depth, rewind the cursor.  Rows that
+    sat the cycle out never appended, so their trailing slots hold
+    committed data and stay untouched."""
+    B, S = state.token_buf.shape
+    active = active.to(torch.bool)
+    slot_ids = torch.arange(S, dtype=torch.int32, device=state.device)
+    wp = state.write_ptr[:, None]
+    start = wp - num_nodes
+    in_block = active[:, None] & (slot_ids >= start) & (slot_ids < wp)
+    cols = torch.where(
+        active[:, None],
+        start + torch.arange(num_nodes, dtype=torch.int32,
+                             device=state.device)[None, :], BIG)
+    keep_full = _scatter_cols(torch.zeros_like(state.mask), cols, keep)
+    return _paged_reclaim(dataclasses.replace(
+        state, mask=torch.where(in_block, state.mask & keep_full, state.mask),
+        length=state.length + add_len.to(torch.int32)))
+
+
+# ---------------------------------------------------------------------------
+# Contiguous state (paged=False): all rows share the write pointer
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ModelState:
+    token_buf: torch.Tensor
+    pos_buf: torch.Tensor
+    mask: torch.Tensor
+    length: torch.Tensor
+    write_ptr: int
+    layers: Dict[str, Any]
+
+    @property
+    def batch(self) -> int:
+        return self.token_buf.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.token_buf.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.token_buf.device
+
+
+def make_state(batch: int, max_len: int, layers: Dict[str, Any], *,
+               device) -> ModelState:
+    i32 = dict(dtype=torch.int32, device=device)
+    return ModelState(
+        token_buf=torch.zeros((batch, max_len), **i32),
+        pos_buf=torch.zeros((batch, max_len), **i32),
+        mask=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
+        length=torch.zeros((batch,), **i32),
+        write_ptr=0,
+        layers=layers)
+
+
+def make_attn_cache(num_layers: int, batch: int, max_len: int,
+                    num_kv_heads: int, head_dim: int, dtype, *,
+                    device) -> Dict[str, torch.Tensor]:
+    shape = (num_layers, batch, max_len, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _check_fits(start: int, width: int, capacity: int) -> None:
+    if start < 0 or start + width > capacity:
+        raise ValueError(f"slots [{start}, {start + width}) overrun the "
+                         f"contiguous state's {capacity} slots")
+
+
+def _put_cols(buf: torch.Tensor, start: int, vals: torch.Tensor):
+    out = buf.clone()
+    out[:, start:start + vals.shape[1]] = vals.to(buf.dtype)
+    return out
+
+
+def contiguous_append_tokens(state: ModelState, tokens: torch.Tensor,
+                             valid: torch.Tensor,
+                             spec_depth: Optional[torch.Tensor] = None):
+    """Every row writes the shared slots ``[P, P+T)``; returns (new_state,
+    q_pos (B, T), P).  An append past capacity raises (the router's
+    capacity guard defragments or re-prefills before that)."""
+    T = tokens.shape[1]
+    P = state.write_ptr
+    _check_fits(P, T, state.capacity)
+    q_pos, adv = _append_positions(state, valid, spec_depth)
+    new = dataclasses.replace(
+        state,
+        token_buf=_put_cols(state.token_buf, P, tokens),
+        pos_buf=_put_cols(state.pos_buf, P, q_pos),
+        mask=_put_cols(state.mask, P, valid),
+        length=state.length + adv,
+        write_ptr=P + T)
+    return new, q_pos, P
+
+
+def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,
+             k_new: torch.Tensor, v_new: torch.Tensor, slot_start: int):
+    """Write (B, T, Hkv, hd) into one layer's (B, S, Hkv, hd) caches in
+    place at ``[slot_start, slot_start + T)``."""
+    T = k_new.shape[1]
+    _check_fits(slot_start, T, cache_k.shape[1])
+    cache_k[:, slot_start:slot_start + T] = k_new.to(cache_k.dtype)
+    cache_v[:, slot_start:slot_start + T] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def logical_rollback(state: ModelState, r: torch.Tensor) -> ModelState:
+    """Invalidate each row's last ``r[b]`` logical entries (Eq. 8)."""
+    new_len = (state.length - r.to(torch.int32)).clamp(min=0)
+    return dataclasses.replace(
+        state, mask=state.mask & (state.pos_buf < new_len[:, None]),
+        length=new_len)
+
+
+def physical_reclaim(state: ModelState) -> ModelState:
+    """Rewind the shared pointer past the invalid suffix common to all
+    rows (the reference's Eq. 9 adaptation; one host read)."""
+    slot_ids = torch.arange(state.capacity, device=state.device)
+    last = int(torch.where(state.mask, slot_ids[None, :], -1).max())
+    return dataclasses.replace(state,
+                               write_ptr=min(state.write_ptr, last + 1))
+
+
+def contiguous_resolve_tree(state: ModelState, num_nodes: int,
+                            keep: torch.Tensor,
+                            add_len: torch.Tensor) -> ModelState:
+    """Settle the tree block in the last ``num_nodes`` shared slots: keep
+    the winning-path nodes, mask dead branches (holes until
+    ``defragment``), advance ``length``, rewind the pointer.  Inactive
+    rows' entries in the block were appended masked, so no gate is
+    needed."""
+    start = state.write_ptr - num_nodes
+    _check_fits(start, num_nodes, state.capacity)
+    block = state.mask[:, start:state.write_ptr] & keep.to(torch.bool)
+    return physical_reclaim(dataclasses.replace(
+        state, mask=_put_cols(state.mask, start, block),
+        length=state.length + add_len.to(torch.int32)))
+
+
+def contiguous_free_rows(state: ModelState, rows: torch.Tensor) -> ModelState:
+    """Logical release: the rows' entries become dead (mask False, length
+    0) and are reclaimed by ``defragment``.  Dense models have no
+    positionless carry to wipe."""
+    rows = rows.to(torch.bool)
+    return dataclasses.replace(
+        state, mask=state.mask & ~rows[:, None],
+        length=torch.where(rows, 0, state.length).to(torch.int32))
+
+
+def defragment(state: ModelState) -> ModelState:
+    """Compact every row's valid entries to the buffer front, in logical
+    order (stable sort), rewriting the index buffers and every per-layer
+    cache along S.  O(S·cache) data movement — run only under capacity
+    pressure."""
+    B, S = state.token_buf.shape
+    key = torch.where(state.mask, state.pos_buf, BIG)
+    order = torch.argsort(key, dim=1, stable=True)              # (B, S)
+    n_valid = state.mask.sum(dim=1, dtype=torch.int32)
+    new_mask = (torch.arange(S, device=state.device)[None, :]
+                < n_valid[:, None])
+
+    def gather_cache(x):                  # (L, B, S, ...) along axis 2
+        idx = order.reshape((1, B, S) + (1,) * (x.dim() - 3))
+        return torch.gather(x, 2, idx.expand(x.shape))
+
+    return dataclasses.replace(
+        state,
+        token_buf=torch.gather(state.token_buf, 1, order),
+        pos_buf=torch.where(new_mask, torch.gather(state.pos_buf, 1, order),
+                            0),
+        mask=new_mask,
+        write_ptr=int(n_valid.max()),
+        layers={n: gather_cache(x) for n, x in state.layers.items()})
+
+
+# ---------------------------------------------------------------------------
+# Layout dispatch
+# ---------------------------------------------------------------------------
+def append_tokens(state, tokens: torch.Tensor, valid: torch.Tensor,
+                  spec_depth: Optional[torch.Tensor] = None):
+    """(new_state, q_pos (B, T), slot): ``slot`` is the (B, T) row-local
+    slots on a paged state, the shared start slot (int) otherwise."""
+    if isinstance(state, PagedModelState):
+        return paged_append_tokens(state, tokens, valid, spec_depth)
+    return contiguous_append_tokens(state, tokens, valid, spec_depth)
+
+
+def rollback(state, r: torch.Tensor):
+    """Paper rollback: logical invalidation (Eq. 8) then reclaim (Eq. 9)."""
+    if isinstance(state, PagedModelState):
+        return paged_rollback(state, r)
+    return physical_reclaim(logical_rollback(state, r))
+
+
+def resolve_tree(state, num_nodes: int, keep: torch.Tensor,
+                 add_len: torch.Tensor, active: torch.Tensor):
+    """Settle a speculative tree block (the tree RollbackProcessor).
+    ``active`` gates paged rows that sat the cycle out."""
+    if isinstance(state, PagedModelState):
+        return paged_resolve_tree(state, num_nodes, keep, add_len, active)
+    return contiguous_resolve_tree(state, num_nodes, keep, add_len)
+
+
+def free_rows(state, rows: torch.Tensor):
+    if isinstance(state, PagedModelState):
+        return paged_free_rows(state, rows)
+    return contiguous_free_rows(state, rows)

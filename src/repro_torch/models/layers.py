@@ -67,6 +67,48 @@ def build_attention_mask(cache_mask: torch.Tensor, kv_positions: torch.Tensor,
     return valid & causal
 
 
+def overlay_block_mask(m: torch.Tensor, cache_mask: torch.Tensor,
+                       block_attend: torch.Tensor,
+                       region_start: int) -> torch.Tensor:
+    """Overwrite the mask columns of a speculative tree region with its
+    static ancestor-or-self override (contiguous state).  Siblings share
+    a logical position, so positional causality alone would let a node
+    see non-ancestors at shallower depth.
+
+    m (B, T, S); cache_mask (B, S) post-append validity; block_attend
+    (T, R); region_start: first slot of the region ``[start, start+R)``.
+    The reference's ``dynamic_slice`` clamps a region that overruns the
+    buffer; here that raises."""
+    T, R = block_attend.shape
+    S = cache_mask.shape[1]
+    if region_start < 0 or region_start + R > S:
+        raise ValueError(f"tree region [{region_start}, {region_start + R})"
+                         f" does not fit {S} slots")
+    region_valid = cache_mask[:, region_start:region_start + R]   # (B, R)
+    m = m.clone()
+    m[:, :, region_start:region_start + R] = (block_attend[None]
+                                              & region_valid[:, None, :])
+    return m
+
+
+def overlay_block_mask_at(m: torch.Tensor, cache_mask: torch.Tensor,
+                          block_attend: torch.Tensor,
+                          cols: torch.Tensor) -> torch.Tensor:
+    """Per-row ``overlay_block_mask`` for paged states: row b's region
+    sits at its own slots ``cols[b]`` (B, R).  Entries carrying the
+    far-future sentinel (rows that sat the cycle out) are skipped, as the
+    reference's ``mode="drop"`` scatter skips them."""
+    T, R = block_attend.shape
+    B, S = cache_mask.shape
+    inb = (cols >= 0) & (cols < S)                               # (B, R)
+    region_valid = torch.gather(cache_mask, 1, cols.clamp(0, S - 1).long())
+    ov = block_attend[None] & region_valid[:, None, :]           # (B, T, R)
+    # dropped entries land in a spare column that is sliced away
+    idx = torch.where(inb, cols, S).long()[:, None, :].expand(B, T, R)
+    ext = torch.cat([m, m.new_zeros((B, T, 1))], dim=2)
+    return ext.scatter(2, idx, ov)[:, :, :S]
+
+
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor,
                   scale: Optional[float] = None) -> torch.Tensor:

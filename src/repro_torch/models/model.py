@@ -1,11 +1,12 @@
 """LanguageModel facade (``repro.models.model``) for the dense family on
-the paged state:
+either KV state:
 
     lm = LanguageModel(cfg)
     params = lm.init(generator)
-    state = lm.make_state(batch, max_len)
+    state = lm.make_state(batch, max_len)          # paged=False: contiguous
     logits, state = lm.prefill(params, state, tokens, valid=...)
-    logits, state = lm.decode(params, state, tokens, valid=...)
+    logits, state = lm.decode(params, state, tokens, valid=...,
+                              spec_depth=..., spec_attend=...)   # tree block
     state = lm.rollback(state, r)
 
 Weights and state go on the card unless the caller passes
@@ -36,13 +37,15 @@ class LanguageModel:
 
     def make_state(self, batch: int, max_len: int, paged: bool = True,
                    block_size: int = 0, pool_blocks: int = 0,
-                   device="cuda") -> kvc.PagedModelState:
-        """A ``PagedModelState`` (per-row block tables over a shared pool).
-        The contiguous state is not ported: ``paged=False`` raises."""
-        if not paged:
-            raise NotImplementedError(
-                "the contiguous (paged=False) state is not ported")
+                   device="cuda"):
+        """A ``PagedModelState`` (per-row block tables over a shared pool),
+        or with ``paged=False`` the contiguous ``ModelState``."""
         device = resolve_device(device)
+        if not paged:
+            return kvc.make_state(
+                batch, max_len,
+                tf.make_cache(self.cfg, batch, max_len, device=device),
+                device=device)
         bs = block_size or kvc.PAGE_BLOCK
         layers = tf.make_paged_cache(self.cfg, batch, max_len, bs,
                                      pool_blocks or None, device=device)
@@ -54,9 +57,12 @@ class LanguageModel:
         return tf.forward_cached(params, self.cfg, state, tokens, valid=valid,
                                  logits_mode=logits_mode)
 
-    def decode(self, params, state, tokens, valid=None, logits_mode="all"):
+    def decode(self, params, state, tokens, valid=None, logits_mode="all",
+               spec_depth=None, spec_attend=None):
         return tf.forward_cached(params, self.cfg, state, tokens, valid=valid,
-                                 logits_mode=logits_mode)
+                                 logits_mode=logits_mode,
+                                 spec_depth=spec_depth,
+                                 spec_attend=spec_attend)
 
-    def rollback(self, state: kvc.PagedModelState, r: torch.Tensor):
-        return kvc.paged_rollback(state, r)
+    def rollback(self, state, r: torch.Tensor):
+        return kvc.rollback(state, r)

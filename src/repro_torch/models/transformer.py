@@ -1,4 +1,4 @@
-"""Dense decoder transformer over the paged KV state
+"""Dense decoder transformer over either KV state
 (``repro.models.transformer``, dense Llama path).
 
 Parameters are a plain dictionary in the reference's layout: every block
@@ -7,10 +7,18 @@ weight is stacked along a leading layer axis L (``transformer
 is a dtype-and-device copy.  The forward runs the layers in a Python loop
 over views of those stacks.
 
-Attention always goes through ``ops.paged_decode_attention`` on one
-layer's flat pool and the block table: on the card that is the paged
-CUDA kernel, which reads the table itself; on the host it is the plain
-version (gather a per-row view, masked GQA attention).
+Attention goes through the kernel entry points of ``ops``: on the paged
+state ``ops.paged_decode_attention`` on one layer's flat pool and the
+block table (the paged CUDA kernel reads the table itself); on the
+contiguous state ``ops.masked_decode_attention`` for one-token steps and
+``ops.masked_tree_attention`` for blocks (prefill, verify, tree levels).
+On the host each is its plain version.
+
+Token trees: ``spec_depth`` (T,) gives each entry of the block its tree
+depth (-1 = committed-stream token) and ``spec_attend`` (T, R) is the
+static ancestor-or-self override of the attention columns of the cycle's
+tree region — the last R slots written after this append (earlier draft
+levels of the same cycle sit right before this block).
 """
 from __future__ import annotations
 
@@ -75,18 +83,32 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ params["embed"].T).float()           # tied embeddings
 
 
-def _block(pl, cfg: ModelConfig, x, *, k_pool, v_pool, mask, rope, plan,
-           block_table, block_size):
-    """One transformer block on the paged state: new K/V scatter into this
-    layer's pools (in place) at the append's physical slots, attention
-    reads the pools through the block table."""
+def _attend(q, k_new, v_new, k_cache, v_cache, mask, state, where):
+    """Write this block's K/V into one layer's cache (in place) and attend.
+    Paged: scatter at the append's pool slots, read through the block
+    table.  Contiguous: write the shared slots, then the masked decode
+    kernel (T = 1) or the masked tree kernel (T > 1)."""
+    if isinstance(state, kvc.PagedModelState):
+        kvc.paged_write_kv(k_cache, v_cache, k_new, v_new, where)
+        return ops.paged_decode_attention(q, k_cache, v_cache,
+                                          state.block_table, mask,
+                                          state.block_size)
+    kvc.write_kv(k_cache, v_cache, k_new, v_new, where)
+    if q.shape[1] == 1:
+        return ops.masked_decode_attention(q[:, 0], k_cache, v_cache,
+                                           mask[:, 0])[:, None]
+    return ops.masked_tree_attention(q, k_cache, v_cache, mask)
+
+
+def _block(pl, cfg: ModelConfig, x, *, k_cache, v_cache, mask, rope, state,
+           where):
+    """One transformer block: new K/V go into this layer's cache, then
+    attention over it under the per-query mask."""
     h = nn.rmsnorm(pl["ln1"], x, cfg.rms_eps)
     q, k_new, v_new = nn.attention_qkv(pl["attn"], h, cfg)
     q = nn.apply_rope(q, *rope)
     k_new = nn.apply_rope(k_new, *rope)
-    kvc.paged_write_kv(k_pool, v_pool, k_new, v_new, plan)
-    attn = ops.paged_decode_attention(q, k_pool, v_pool, block_table, mask,
-                                      block_size)
+    attn = _attend(q, k_new, v_new, k_cache, v_cache, mask, state, where)
     x = x + nn.attention_out(pl["attn"], attn)
     return x + nn.swiglu(pl["mlp"], nn.rmsnorm(pl["ln2"], x, cfg.rms_eps))
 
@@ -101,27 +123,50 @@ def make_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                                      cfg.dtype, device=device)
 
 
-def forward_cached(params, cfg: ModelConfig, state: kvc.PagedModelState,
-                   tokens: torch.Tensor, valid: Optional[torch.Tensor] = None,
-                   logits_mode: str = "all"):
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
+    """Contiguous per-layer attention caches (L, B, S, Hkv, hd)."""
+    return kvc.make_attn_cache(cfg.num_layers, batch, max_len,
+                               cfg.num_kv_heads, cfg.head_dim, cfg.dtype,
+                               device=device)
+
+
+def forward_cached(params, cfg: ModelConfig, state, tokens: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None,
+                   logits_mode: str = "all",
+                   spec_depth: Optional[torch.Tensor] = None,
+                   spec_attend: Optional[torch.Tensor] = None):
     """Append T tokens per row, run every layer, return (logits, state).
 
     logits_mode: 'all' -> (B, T, V); 'last' -> (B, V) at each row's last
-    valid entry; 'none' -> None.  Logits are fp32."""
+    valid entry; 'none' -> None.  Logits are fp32.  ``spec_depth`` /
+    ``spec_attend`` mark a token-tree block (module docstring)."""
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.bool,
                            device=tokens.device)
-    state, q_pos, slot = kvc.paged_append_tokens(state, tokens, valid)
+    paged = isinstance(state, kvc.PagedModelState)
+    state, q_pos, slot = kvc.append_tokens(state, tokens, valid,
+                                           spec_depth=spec_depth)
     x = _embed(params, cfg, tokens)
     mask = nn.build_attention_mask(state.mask, state.pos_buf, q_pos)
-    plan = kvc.scatter_plan(kvc.physical_slots(state, slot))
+    if spec_attend is not None:
+        if paged:
+            cols = kvc.tree_region_cols(state, spec_attend.shape[1],
+                                        valid.any(dim=1))
+            mask = nn.overlay_block_mask_at(mask, state.mask, spec_attend,
+                                            cols)
+        else:
+            mask = nn.overlay_block_mask(
+                mask, state.mask, spec_attend,
+                slot + tokens.shape[1] - spec_attend.shape[1])
+    # paged: the pool slots of the new entries, planned once per forward
+    where = (kvc.scatter_plan(kvc.physical_slots(state, slot)) if paged
+             else slot)
     rope = nn.rope_tables(q_pos, cfg.rope_theta, cfg.head_dim)
-    pools = state.layers
+    caches = state.layers
     for i in range(cfg.num_layers):
-        x = _block(layer_params(params, i), cfg, x,
-                   k_pool=pools["k"][i], v_pool=pools["v"][i], mask=mask,
-                   rope=rope, plan=plan, block_table=state.block_table,
-                   block_size=state.block_size)
+        x = _block(layer_params(params, i), cfg, x, k_cache=caches["k"][i],
+                   v_cache=caches["v"][i], mask=mask, rope=rope, state=state,
+                   where=where)
     if logits_mode == "none":
         return None, state
     if logits_mode == "last":

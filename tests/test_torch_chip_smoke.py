@@ -37,6 +37,13 @@ def test_kernel_phase_rehearsal():
     assert {r["name"] for r in recs} == set(chip_smoke.REPRESENTATIVE)
     assert all(r["pass"] and r["ms"] is None for r in recs)
     assert all(n == 0 for n in ops.launch_counts().values())
+    cases = {(r["name"], r["case"]) for r in recs}
+    for case in ("tiny T=10 tree float32", "tiny T=10 tree S=256 float32",
+                 "tiny T=5 S=256 float32"):
+        assert any(c == case for _, c in cases), case
+    for k in (1, 2):
+        for R in (4, 8, 16):
+            assert ("draft_topk", f"R={R} V=3000 k={k} bfloat16") in cases
 
 
 def test_serving_and_output_phase_rehearsal():
@@ -44,11 +51,22 @@ def test_serving_and_output_phase_rehearsal():
     serving = chip_smoke.phase_serving("cpu", chain, dtype=torch.float32,
                                        n_prompts=3, prompt_len=8,
                                        new_tokens=6)
-    assert set(serving["runs"]) == {"adaptive", "fixed_chain", "session"}
+    assert set(serving["runs"]) == {"session"} | set(
+        chip_smoke.serving_runs(("a", "b", "c")))
+    assert {"paged_tree", "adaptive_tree", "contiguous_linear",
+            "contiguous_tree"} <= set(serving["runs"])
     assert all(n == 0 for n in serving["launches"].values())
+    assert all(all(v) for v in
+               serving["stream_equal_to_fixed_chain"].values())
     out = chip_smoke.phase_output("cpu", chain, n_prompts=3, prompt_len=8,
                                   new_tokens=6)
-    assert out["identical_rows"] == 3
+    assert set(out) == set(chip_smoke.OUTPUT_PATHS)
+    assert all(r["identical_rows"] == 3 for r in out.values())
+    session = out["twin_contiguous_session"]
+    assert session["defragments"] > 0
+    assert min(session["commits_per_active_cycle"]) > 1.0
+    cycles = out["twin_paged_tree"]["cycles"]
+    assert cycles["speculative"] < cycles["target_only"]
 
 
 def _run(script_dir):

@@ -127,7 +127,10 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
     ops.softmax_stats(_t(x))
     ops.dtv(_t(x), _t(x))
     assert ops.launch_counts() == {"paged_attention": 0, "verify_stats": 0,
-                                   "softmax_stats": 0, "dtv": 0}
+                                   "softmax_stats": 0, "dtv": 0,
+                                   "masked_decode_attention": 0,
+                                   "masked_tree_attention": 0,
+                                   "draft_topk": 0}
 
 
 def test_dispatch_rejects_devices_without_a_kernel_path():

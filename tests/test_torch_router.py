@@ -1,7 +1,8 @@
 """The port's ChainRouter / RouterSession on the quickstart pool, with the
 reference's weights: the same greedy streams as the JAX router, the
 paper's output guarantee (speculative == target-only greedy), the
-SimScore probe's DTV, and the options this slice rejects."""
+SimScore probe's DTV, and the options the port rejects.  Token trees and
+the contiguous state are in ``test_torch_tree_router.py``."""
 import numpy as np
 import pytest
 import torch
@@ -134,11 +135,8 @@ def test_probe_dtv_matches_reference_pairwise_dtv_rows(pools):
         np.testing.assert_allclose(got[pair], want[pair], atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(fused=True), dict(greedy=False), dict(tree_shapes=("2x2",)),
-    dict(fixed_chain=("draft-s", TARGET), fixed_tree="2x2"),
-    dict(paged=False)],
-    ids=["fused", "sampling", "tree-shapes", "fixed-tree", "contiguous"])
+@pytest.mark.parametrize("kw", [dict(fused=True), dict(greedy=False)],
+                         ids=["fused", "sampling"])
 def test_unported_paths_raise(pools, kw):
     _, tpool, _ = pools
     with pytest.raises(NotImplementedError, match="not ported"):
