@@ -17,7 +17,12 @@ Phases, each printing its own lines:
              ``F.scaled_dot_product_attention`` on contiguous K/V for the
              attention kernels, ``torch.topk`` for the tree-draft top-k.
              Attention runs causal verify masks, token-tree ancestor rows
-             with dead-branch holes, rollback holes and a fully masked row.
+             with dead-branch holes, rollback holes and a fully masked row
+             (which must be exactly 0), at S=256 and at long context
+             (paged R=128x32, contiguous S=4096); each case prints its
+             key-split plan, must repeat bit for bit, and in fp32 at long
+             context a row of a T=1 launch must equal the last row of the
+             T=5 launch.
              ``dtv`` is timed as the wrapper the probe calls: two
              softmax-stats launches and one |p - q| launch.
 4. serving — the full-width Llama chain llama-68m -> tinyllama-1.1b ->
@@ -57,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -143,11 +149,23 @@ def phase_build(device) -> float:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"[build] kernels built in {secs:.1f} s")
-    for src, log in build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {src}: {line.strip()}")
+    for src, lines in ptxas_report().items():
+        regs = [int(n) for ln in lines
+                for n in re.findall(r"Used (\d+) registers", ln)]
+        spills = [ln for ln in lines
+                  if "spill" in ln and not ln.startswith("0 bytes")]
+        print(f"[build] {src}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, "
+              f"{len(spills)} with spills (chip_smoke.json has each)")
     return secs
+
+
+def ptxas_report() -> dict:
+    """nvcc's ``-Xptxas -v`` lines per CUDA source: each kernel's
+    registers, shared memory and spills."""
+    return {src: [ln.strip() for ln in log.splitlines()
+                  if "ptxas info" in ln or "spill" in ln]
+            for src, log in build.BUILD_LOGS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -181,13 +199,14 @@ def _row_masks(lens, T, S, kind, holes):
 
 
 def attention_case(device, H, Hkv, D, T, dtype, B=4, bs=32, R=8, seed=0,
-                   kind="causal"):
+                   kind="causal", lens=None):
     """Paged operands at main-path shapes: per-row block tables with
-    unallocated (-1) entries, per-query masks (``_row_masks``) and one
-    fully masked row (an inactive slot)."""
+    unallocated (-1) entries, per-query masks (``_row_masks``) over rows of
+    ``lens`` entries and one fully masked row (an inactive slot)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     P = B * R + 8
-    lens = [min(200, R * bs), 131, 77, 0][:B] + [64] * max(0, B - 4)
+    if lens is None:
+        lens = [min(200, R * bs), 131, 77, 0][:B] + [64] * max(0, B - 4)
     table = torch.full((B, R), -1, dtype=torch.int32)
     perm = torch.randperm(P, generator=g)
     used = 0
@@ -205,11 +224,13 @@ def attention_case(device, H, Hkv, D, T, dtype, B=4, bs=32, R=8, seed=0,
 
 
 def contiguous_case(device, H, Hkv, D, T, dtype, B=4, S=256, seed=4,
-                    kind="causal"):
+                    kind="causal", lens=None):
     """Contiguous-state operands: (B, S, Hkv, D) caches, per-query masks
-    with rollback holes (``_row_masks``) and one fully masked row."""
+    with rollback holes (``_row_masks``) over rows of ``lens`` entries and
+    one fully masked row."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    lens = [S - 6, 131, 77, 0][:B] + [64] * max(0, B - 4)
+    if lens is None:
+        lens = [S - 6, 131, 77, 0][:B] + [64] * max(0, B - 4)
     mask = _row_masks(lens, T, S, kind, holes=True)
     q = torch.randn(B, T, H, D, generator=g)
     k = torch.randn(B, S, Hkv, D, generator=g)
@@ -321,8 +342,8 @@ def _sdpa_call(q, k, v, mask, table=None, bs=None):
 
 
 def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
-                  attn_shapes=None, Ts=(1, 5), V=32000, iters=50,
-                  timed=True) -> list:
+                  attn_shapes=None, V=32000, iters=50, timed=True,
+                  long_S=4096) -> list:
     """Every kernel (through its ``ops`` wrapper) against its plain
     version.  Returns one record per case; raises PhaseFailed when a case
     is outside its tolerance.  ``timed=False`` (the CPU rehearsal) skips
@@ -351,61 +372,107 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
             raise PhaseFailed(f"{rec['name']} {rec['case']} disagrees with "
                               f"its plain version: {rec}")
 
-    def attn(name, case, got, want, bound, kernel, plain, lib, shape):
+    def attn(name, case, kernel, plain, bound, lib, shape, plan,
+             same_row=None):
+        """One attention case: the kernel's output against its plain
+        version, a fully masked last row that must be exactly 0, a second
+        launch that must agree bit for bit, and (``same_row``) a query row
+        that must not depend on the block it is launched in."""
+        got, want = kernel(), plain()
+        again = kernel()
         err = float((got.float() - want.float()).abs().max())
         # a fully masked query row must give zeros, not NaN
         zero_row = bool((got.reshape(got.shape[0], -1)[-1] == 0).all())
-        add({"name": name, "case": case, "shape": shape,
-             "dtype": _dtname(got.dtype), "max_abs_err": err,
-             "tol": ATTN_TOL[got.dtype],
-             "pass": err <= ATTN_TOL[got.dtype] and zero_row,
-             "bound_ms": bound[0], "bound_by": bound[1]},
-            kernel, plain, lib)
+        repeat = bool(torch.equal(got, again))
+        rec = {"name": name, "case": case, "shape": shape,
+               "dtype": _dtname(got.dtype), "max_abs_err": err,
+               "tol": ATTN_TOL[got.dtype], "zero_row": zero_row,
+               "bitwise_repeat": repeat, "splits": plan[0],
+               "ctas": plan[1]}
+        ok = err <= ATTN_TOL[got.dtype] and zero_row and repeat
+        if same_row is not None:
+            rec["t1_equals_last_row"] = bool(same_row(got))
+            ok = ok and rec["t1_equals_last_row"]
+        print(f"[kernels] {name} {case}: plan splits={plan[0]} "
+              f"ctas={plan[1]} zero_row={zero_row} bitwise_repeat={repeat}"
+              f"{'' if same_row is None else ' t1_equals_last_row=' + str(rec['t1_equals_last_row'])}")
+        rec.update({"pass": ok, "bound_ms": bound[0], "bound_by": bound[1]})
+        add(rec, kernel, plain, lib)
 
-    for dt in dtypes:
-        for model, (H, Hkv, D) in attn_shapes.items():
-            for T, kind in ((1, "causal"), (5, "causal"), (10, "tree")):
-                q, k, v, table, mask, bs = attention_case(device, H, Hkv, D,
-                                                          T, dt, kind=kind)
-                tag = " tree" if kind == "tree" else ""
-                attn("paged_attention", f"{model} T={T}{tag} {_dtname(dt)}",
-                     ops.paged_decode_attention(q, k, v, table, mask, bs),
-                     attention.paged_attention_plain(q, k, v, table, mask,
+    def plan(q, Hkv, S, bs):
+        """(splits, CTAs) of this launch."""
+        B, T, H, _ = q.shape
+        n_sm = (attention.sm_count(q.device) if q.device.type == "cuda"
+                else 132)
+        splits, _ = attention.split_plan(B, Hkv, S, bs, n_sm)
+        rows = T * (H // Hkv)
+        return splits, splits * -(-rows // attention.row_tile(rows)) * Hkv * B
+
+    def paged(model, H, Hkv, D, T, dt, kind, tag, R=8, lens=None):
+        q, k, v, table, mask, bs = attention_case(device, H, Hkv, D, T, dt,
+                                                  kind=kind, R=R, lens=lens)
+        same_row = None
+        if lens is not None and dt == torch.float32 and T > 1:
+            def same_row(got):
+                one = ops.paged_decode_attention(q[:, -1:], k, v, table,
+                                                 mask[:, -1:], bs)
+                return torch.equal(one[:, 0], got[:, -1])
+        attn("paged_attention", f"{model} T={T}{tag} {_dtname(dt)}",
+             lambda: ops.paged_decode_attention(q, k, v, table, mask, bs),
+             lambda: attention.paged_attention_plain(q, k, v, table, mask,
                                                      bs),
-                     _attn_bound(q, Hkv, mask, table),
-                     lambda: ops.paged_decode_attention(q, k, v, table, mask,
-                                                        bs),
-                     lambda: attention.paged_attention_plain(q, k, v, table,
-                                                             mask, bs),
-                     _sdpa_call(q, k, v, mask, table, bs) if timed else None,
-                     [list(q.shape), list(k.shape), list(table.shape)])
+             _attn_bound(q, Hkv, mask, table),
+             _sdpa_call(q, k, v, mask, table, bs) if timed else None,
+             [list(q.shape), list(k.shape), list(table.shape)],
+             plan(q, Hkv, table.shape[1] * bs, bs), same_row)
 
-            q, k, v, mask = contiguous_case(device, H, Hkv, D, 1, dt)
+    def contiguous(model, H, Hkv, D, T, dt, kind, tag, S=256, lens=None):
+        q, k, v, mask = contiguous_case(device, H, Hkv, D, T, dt, kind=kind,
+                                        S=S, lens=lens)
+        S = k.shape[1]
+        if T == 1:
             q1, m1 = q[:, 0], mask[:, 0]
             attn("masked_decode_attention",
-                 f"{model} T=1 S={k.shape[1]} {_dtname(dt)}",
-                 ops.masked_decode_attention(q1, k, v, m1),
-                 attention.masked_decode_attention_plain(q1, k, v, m1),
-                 _attn_bound(q, Hkv, mask),
+                 f"{model} T=1 S={S}{tag} {_dtname(dt)}",
                  lambda: ops.masked_decode_attention(q1, k, v, m1),
                  lambda: attention.masked_decode_attention_plain(q1, k, v,
                                                                  m1),
+                 _attn_bound(q, Hkv, mask),
                  _sdpa_call(q, k, v, mask) if timed else None,
-                 [list(q1.shape), list(k.shape)])
-            for T, kind in ((5, "causal"), (10, "tree")):
-                q, k, v, mask = contiguous_case(device, H, Hkv, D, T, dt,
-                                                kind=kind)
-                tag = " tree" if kind == "tree" else ""
-                attn("masked_tree_attention",
-                     f"{model} T={T}{tag} S={k.shape[1]} {_dtname(dt)}",
-                     ops.masked_tree_attention(q, k, v, mask),
-                     attention.masked_tree_attention_plain(q, k, v, mask),
-                     _attn_bound(q, Hkv, mask),
-                     lambda: ops.masked_tree_attention(q, k, v, mask),
-                     lambda: attention.masked_tree_attention_plain(q, k, v,
-                                                                   mask),
-                     _sdpa_call(q, k, v, mask) if timed else None,
-                     [list(q.shape), list(k.shape)])
+                 [list(q1.shape), list(k.shape)], plan(q, Hkv, S, S))
+            return
+        same_row = None
+        if lens is not None and dt == torch.float32:
+            def same_row(got):
+                one = ops.masked_decode_attention(q[:, -1], k, v,
+                                                  mask[:, -1])
+                return torch.equal(one, got[:, -1])
+        attn("masked_tree_attention",
+             f"{model} T={T}{tag} S={S} {_dtname(dt)}",
+             lambda: ops.masked_tree_attention(q, k, v, mask),
+             lambda: attention.masked_tree_attention_plain(q, k, v, mask),
+             _attn_bound(q, Hkv, mask),
+             _sdpa_call(q, k, v, mask) if timed else None,
+             [list(q.shape), list(k.shape)], plan(q, Hkv, S, S), same_row)
+
+    first = next(iter(attn_shapes))     # llama-2-7b: fp32 long cases too
+    for dt in dtypes:
+        for model, (H, Hkv, D) in attn_shapes.items():
+            for T, kind in ((1, "causal"), (5, "causal"), (10, "tree")):
+                paged(model, H, Hkv, D, T, dt, kind,
+                      " tree" if kind == "tree" else "")
+            for T, kind in ((1, "causal"), (5, "causal"), (10, "tree")):
+                contiguous(model, H, Hkv, D, T, dt, kind,
+                           " tree" if kind == "tree" else "")
+            # long context: rows of S-6, 3S/4, S/2 and 0 entries
+            S = long_S
+            lens = [S - 6, 3 * S // 4, S // 2, 0]
+            for T in (1, 5):
+                if dt == torch.bfloat16 or (model == first and T == 5):
+                    paged(model, H, Hkv, D, T, dt, "causal",
+                          f" R={S // 32}x32", R=S // 32, lens=lens)
+                    contiguous(model, H, Hkv, D, T, dt, "causal", "", S=S,
+                               lens=lens)
 
         x, cand = verify_case(device, dt, V=V)
         am, m, s, cl = ops.verify_row_stats(x, cand)
@@ -638,7 +705,7 @@ def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
             "stream_equal_to_fixed_chain": same, "profile": profiles}
 
 
-KERNEL_CLASSES = (("attention", ("flash_decode_kernel",)),
+KERNEL_CLASSES = (("attention", ("flash_decode_kernel", "combine_kernel")),
                   ("row_kernels", ("_verify_stats_body", "_softmax_stats_body",
                                    "_dtv_body", "_topk_body")),
                   ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")))
@@ -908,7 +975,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "build_s": build_s, "phase_s": phase_s,
-         "cases": records,
+         "ptxas": ptxas_report(), "cases": records,
          "serving": serving, "output": output, "kernels": line}, indent=1))
     print(f"[device] {dev['smi']}")
     print(json.dumps({"kernels": line}))

@@ -15,56 +15,55 @@
 //
 // What bounds them on the H100: the bytes of the K/V rows a query attends
 // to (a few FLOPs per byte, far below the ~295 FLOP/byte ridge), as for the
-// paged kernel.  Both run flash_decode.cuh's kernel with the identity table
-// (kPaged = false: R = 1 block of bs = S slots, block id = batch row), so a
-// row's keys are read in 32-key chunks straight from its cache rows, the last
-// chunk cut at S (no padding of S to a tile, unlike the TPU wrapper's 512),
-// and chunks no query row attends to (rolled-back tails, unused capacity) are
-// skipped.  The decode kernel is the T = 1 launch; the TPU likewise made the
-// decode kernel the tree kernel's T = 1 case.
+// paged kernel.  Both run flash_decode.cuh's split-key kernel with the
+// identity table (kPaged = false: R = 1 block of bs = S slots, block id =
+// batch row), so the key splits of kernels/attention.py:split_plan cut each
+// row's single block into chunk-aligned ranges, the last chunk cut at S (no
+// padding of S to a tile, unlike the TPU wrapper's 512).  Chunks no query row
+// attends to (rolled-back tails, unused capacity) are never copied.  The
+// decode kernel is the T = 1 launch, with the one-row tile; the TPU likewise
+// made the decode kernel the tree kernel's T = 1 case.  ml and acc are the
+// fp32 split partials, (B*T*H, splits, 2) and (B*T*H, splits, D), unused
+// (may be null) when splits = 1.
 
 #include "flash_decode.cuh"
 
 namespace {
 
 int launch_contiguous(const void* q, const void* k, const void* v,
-                      const void* mask, void* out, int B, int T, int H,
-                      int Hkv, int D, int S, float scale, int dtype,
-                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
-    return (int)cudaErrorInvalidValue;
+                      const void* mask, void* out, void* ml, void* acc, int B,
+                      int T, int H, int Hkv, int D, int S, int splits, int cps,
+                      float scale, int dtype, void* stream) {
   // identity table: P = B blocks of bs = S slots, R = 1 block per row
-  if (dtype == 0 && D == 64) {
-    launch<float, 64, false>(q, k, v, nullptr, mask, out, B, T, H, Hkv, B, S, 1, scale, st);
-  } else if (dtype == 0 && D == 128) {
-    launch<float, 128, false>(q, k, v, nullptr, mask, out, B, T, H, Hkv, B, S, 1, scale, st);
-  } else if (dtype == 1 && D == 64) {
-    launch<__nv_bfloat16, 64, false>(q, k, v, nullptr, mask, out, B, T, H, Hkv, B, S, 1, scale, st);
-  } else if (dtype == 1 && D == 128) {
-    launch<__nv_bfloat16, 128, false>(q, k, v, nullptr, mask, out, B, T, H, Hkv, B, S, 1, scale, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Args a{q, k, v, nullptr, static_cast<const uint8_t*>(mask), out,
+               static_cast<float*>(ml), static_cast<float*>(acc), T, H, Hkv,
+               B, S, 1, splits, cps, scale};
+  return launch<false>(a, B, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of the
-// launch (0 = success); cudaErrorInvalidValue for an unsupported dtype/head dim.
+// dtype: 0 = float32, 1 = bfloat16; splits key ranges of cps chunks each.
+// Each returns the cudaError_t of the launches (0 = success);
+// cudaErrorInvalidValue for an unsupported dtype/head dim or plan.
 extern "C" int masked_decode_attention_launch(const void* q, const void* k,
                                               const void* v, const void* mask,
-                                              void* out, int B, int H, int Hkv,
-                                              int D, int S, float scale,
-                                              int dtype, void* stream) {
-  return launch_contiguous(q, k, v, mask, out, B, 1, H, Hkv, D, S, scale, dtype, stream);
+                                              void* out, void* ml, void* acc,
+                                              int B, int H, int Hkv, int D,
+                                              int S, int splits, int cps,
+                                              float scale, int dtype,
+                                              void* stream) {
+  return launch_contiguous(q, k, v, mask, out, ml, acc, B, 1, H, Hkv, D, S,
+                           splits, cps, scale, dtype, stream);
 }
 
 extern "C" int masked_tree_attention_launch(const void* q, const void* k,
                                             const void* v, const void* mask,
-                                            void* out, int B, int T, int H,
-                                            int Hkv, int D, int S, float scale,
-                                            int dtype, void* stream) {
-  return launch_contiguous(q, k, v, mask, out, B, T, H, Hkv, D, S, scale, dtype, stream);
+                                            void* out, void* ml, void* acc,
+                                            int B, int T, int H, int Hkv,
+                                            int D, int S, int splits, int cps,
+                                            float scale, int dtype,
+                                            void* stream) {
+  return launch_contiguous(q, k, v, mask, out, ml, acc, B, T, H, Hkv, D, S,
+                           splits, cps, scale, dtype, stream);
 }

@@ -1,5 +1,5 @@
-"""Flash-decode attention kernels: the CUDA kernels' wrappers and their
-plain PyTorch versions.
+"""Flash-decode attention kernels: the CUDA kernels' wrappers, their
+plain PyTorch versions and the key-split plan.
 
 - ``paged_attention``: replaces ``repro/kernels/attention.py:
   paged_flash_decode_pallas`` (TPU body ``_paged_attn_kernel``), over the
@@ -10,14 +10,18 @@ plain PyTorch versions.
   (``_tree_attn_kernel``), T query tokens with per-query mask rows over a
   contiguous cache (both in ``csrc/masked_attention.cu``).
 
-All three are hand-written CUDA C++ for sm_90a on one shared kernel body
+All three are hand-written CUDA C++ for sm_90a on one kernel body
 (``csrc/flash_decode.cuh``), built with ``nvcc`` at first use and called
-through ``ctypes``.  What bounds them on the H100 and what the design does
-about it is written at the top of those sources: they are memory-bound on
-the K/V a row attends to; a CTA stages each 32-key K/V chunk once for all
-the query rows of one (row, KV head) and skips chunks no query attends
-to.  The paged kernel reads the block table itself; the contiguous ones
-address the cache with an identity table and cut the last chunk at S.
+through ``ctypes``.  They are bound by the bytes of the K/V a row attends
+to, so the body is built to keep bytes in flight: ``split_plan`` cuts each
+row's keys into chunk-aligned ranges so that several CTAs per (row, KV
+head) fill the card, each CTA prefetches 32-key K/V chunks with 16-byte
+``cp.async`` copies into a ring of shared-memory stages, skips chunks no
+query of its tile attends to before copying them, and a second small
+kernel merges the splits' fp32 partials in a fixed order (scratch from
+``torch.empty`` here).  The plan reads no tensor and does not depend on T,
+so the wrappers add no host sync and a query row is reduced in the same
+order in a decode, a verify block and a tree block.
 
 Semantics kept from the TPU wrappers (``ops.*_attention``): scores are
 scaled by the true head dim, unallocated table entries (-1) are clamped to
@@ -28,6 +32,7 @@ return 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -48,7 +53,7 @@ _fns: dict = {}
 
 def _bind(source: str, symbol: str, n_ptrs: int, n_ints: int):
     """ctypes binding of a launcher: ``n_ptrs`` pointers (q, k, v,
-    [table,] mask, out), ``n_ints`` ints, the scale, the dtype code and the
+    [table,] mask, out, split partials ml and acc), ``n_ints`` ints, the scale, the dtype code and the
     stream."""
     key = (source, symbol)
     if key not in _fns:
@@ -61,15 +66,85 @@ def _bind(source: str, symbol: str, n_ptrs: int, n_ints: int):
 
 
 def _launcher():
-    return _bind("paged_attention.cu", "paged_attention_launch", 6, 8)
+    return _bind("paged_attention.cu", "paged_attention_launch", 8, 10)
 
 
 def masked_launchers():
     """(decode launcher, tree launcher) of ``csrc/masked_attention.cu``."""
     return (_bind("masked_attention.cu", "masked_decode_attention_launch",
-                  5, 5),
+                  7, 7),
             _bind("masked_attention.cu", "masked_tree_attention_launch",
-                  5, 6))
+                  7, 8))
+
+
+CHUNK = 32        # keys per K/V chunk of the kernel (flash_decode.cuh kChunk)
+WAVES = 4         # CTAs the plan aims for: this many per SM
+ROW_TILES = (1, 2, 4, 5, 6, 8, 12, 16)   # query rows per CTA (launch_tiles)
+
+
+def row_tile(n_rows: int) -> int:
+    """Query rows per CTA for n_rows = T·g query rows per (row, KV head):
+    the least tile that holds them, else the largest."""
+    return next((t for t in ROW_TILES if n_rows <= t), ROW_TILES[-1])
+
+
+def split_plan(B: int, Hkv: int, S: int, bs: int, n_sm: int) -> tuple:
+    """Key splits of one launch: ``(splits, chunks per split)``.
+
+    A row's S = R·bs key slots are cut into chunks of ``CHUNK`` slots from
+    each block's start (the last one cut at the block's end); a split is a
+    run of whole chunks.  The plan asks for ``WAVES·n_sm`` CTAs over the
+    ``B·Hkv`` (row, KV head) pairs and takes one split when those pairs
+    already give that many.  Row tiles (T·g) are no input, so a query row
+    is reduced in the same order whatever the block it is launched in; the
+    plan reads no tensor, so it costs no host sync.  Contiguous caches pass
+    bs = S (one block per row)."""
+    if min(B, Hkv, S, bs, n_sm) <= 0 or S % bs:
+        raise ValueError(f"bad split-plan inputs B={B} Hkv={Hkv} S={S} "
+                         f"bs={bs} n_sm={n_sm}")
+    n_chunks = (S // bs) * (-(-bs // CHUNK))
+    want = -(-WAVES * n_sm // (B * Hkv))
+    splits = max(1, min(want, n_chunks))
+    per = -(-n_chunks // splits)
+    return -(-n_chunks // per), per
+
+
+def split_ranges(S: int, bs: int, splits: int, per: int) -> list:
+    """The row-local key slots ``[lo, hi)`` of each split of a plan."""
+    cpb = -(-bs // CHUNK)
+
+    def start(c):
+        return (c // cpb) * bs + (c % cpb) * CHUNK
+
+    n_chunks = (S // bs) * cpb
+    return [(start(i * per), start(min(n_chunks, (i + 1) * per)))
+            for i in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_and_scratch(q: torch.Tensor, B: int, Hkv: int, S: int, bs: int):
+    """Split plan for this launch and its fp32 partials, one buffer of
+    (m, l) pairs then acc rows (null pointers for one split)."""
+    splits, per = split_plan(B, Hkv, S, bs, sm_count(q.device))
+    if splits == 1:
+        return splits, per, 0, 0, None
+    n = q.numel() // q.shape[-1] * splits
+    scratch = torch.empty(n * (2 + q.shape[-1]), dtype=torch.float32,
+                          device=q.device)
+    ml = scratch.data_ptr()
+    return splits, per, ml, ml + 2 * n * scratch.element_size(), scratch
+
+
+def _check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """The kernel copies K/V in 16-byte units: every operand it reads or
+    writes that way must start on a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} needs 16-byte aligned q/k/v/out")
 
 
 def _check_dtypes(what: str, q, k, v) -> None:
@@ -123,11 +198,14 @@ def paged_attention_cuda(q: torch.Tensor, k_flat: torch.Tensor,
     table = block_table.to(torch.int32).contiguous()
     mask = mask.contiguous()
     out = torch.empty_like(q)
+    _check_aligned("paged attention", q, k_flat, v_flat, out)
     P = k_flat.shape[0] // block_size
+    splits, per, ml, acc, _keep = _plan_and_scratch(q, B, Hkv, R * block_size,
+                                                    block_size)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(q.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(),
                       table.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                      B, T, H, Hkv, D, P, block_size, R,
+                      ml, acc, B, T, H, Hkv, D, P, block_size, R, splits, per,
                       1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_launch failed: cudaError {err}")
@@ -173,10 +251,13 @@ def _masked_cuda(what, launcher, counter, q, k, v, mask, T, decode):
     q = q.contiguous()
     mask = mask.contiguous()
     out = torch.empty_like(q)
+    _check_aligned(what, q, k, v, out)
+    splits, per, ml, acc, _keep = _plan_and_scratch(q, B, Hkv, S, S)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ints = (B, H, Hkv, D, S) if decode else (B, T, H, Hkv, D, S)
     err = launcher(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                   out.data_ptr(), *ints, 1.0 / math.sqrt(D),
+                   out.data_ptr(), ml, acc, *ints, splits, per,
+                   1.0 / math.sqrt(D),
                    _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")

@@ -33,13 +33,19 @@ def _tiny_chain():
 def test_kernel_phase_rehearsal():
     ops.reset_launch_counts()
     recs = chip_smoke.phase_kernels("cpu", attn_shapes={"tiny": (4, 2, 16)},
-                                    V=3000, timed=False)
+                                    V=3000, timed=False, long_S=96)
     assert {r["name"] for r in recs} == set(chip_smoke.REPRESENTATIVE)
     assert all(r["pass"] and r["ms"] is None for r in recs)
+    attn = [r for r in recs if "attention" in r["name"]]
+    assert all(r["zero_row"] and r["bitwise_repeat"] and r["splits"] >= 1
+               for r in attn)
+    assert sum("t1_equals_last_row" in r for r in attn) == 2
     assert all(n == 0 for n in ops.launch_counts().values())
     cases = {(r["name"], r["case"]) for r in recs}
     for case in ("tiny T=10 tree float32", "tiny T=10 tree S=256 float32",
-                 "tiny T=5 S=256 float32"):
+                 "tiny T=5 S=256 float32", "tiny T=5 R=3x32 float32",
+                 "tiny T=5 S=96 float32", "tiny T=1 R=3x32 bfloat16",
+                 "tiny T=1 S=96 bfloat16"):
         assert any(c == case for _, c in cases), case
     for k in (1, 2):
         for R in (4, 8, 16):

@@ -139,6 +139,53 @@ def test_dispatch_rejects_devices_without_a_kernel_path():
         ops.softmax_stats(meta)
 
 
+PLAN_SHAPES = [(4, 32, 256, 32), (4, 4, 256, 32), (4, 32, 4096, 32),
+               (4, 4, 4100, 4100), (4, 32, 250, 250), (3, 2, 280, 40),
+               (1, 1, 24, 8), (2, 8, 96, 96), (64, 32, 4096, 32)]
+
+
+@pytest.mark.parametrize("B,Hkv,S,bs", PLAN_SHAPES)
+def test_split_plan_covers_every_key_once_on_chunk_bounds(B, Hkv, S, bs):
+    splits, per = attention.split_plan(B, Hkv, S, bs, 132)
+    ranges = attention.split_ranges(S, bs, splits, per)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == S     # cut at S
+    for (lo, hi), (nlo, _) in zip(ranges, ranges[1:]):
+        assert lo < hi == nlo                           # no gap, no overlap
+    chunk_starts = {rb * bs + c for rb in range(S // bs)
+                    for c in range(0, bs, attention.CHUNK)}
+    assert all(lo in chunk_starts for lo, _ in ranges)  # chunk-aligned
+    covered = np.zeros(S, int)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+
+
+def test_split_plan_takes_no_row_tile_and_fills_the_card():
+    """The plan's inputs are (B, Hkv, S, bs, SMs): no T and no tensor, so
+    a decode, a verify block and a tree block share one plan."""
+    import inspect
+    assert list(inspect.signature(attention.split_plan).parameters) == [
+        "B", "Hkv", "S", "bs", "n_sm"]
+    splits, _ = attention.split_plan(4, 32, 4096, 32, 132)  # llama-2-7b
+    assert splits * 4 * 32 >= 2 * 132
+    # one split when B*Hkv alone fills the SMs several times over ...
+    assert attention.split_plan(64, 32, 4096, 32, 132)[0] == 1
+    assert attention.split_plan(4, 32, 4096, 32, 8)[0] == 1
+    # ... or when the row holds a single chunk
+    assert attention.split_plan(1, 1, 32, 32, 132) == (1, 1)
+    assert attention.split_plan(1, 1, 20, 20, 132) == (1, 1)
+    with pytest.raises(ValueError):
+        attention.split_plan(4, 32, 100, 32, 132)           # S % bs
+
+
+@pytest.mark.parametrize("n_rows,tile", [(1, 1), (2, 2), (3, 4), (5, 5), (6, 6),
+                                         (8, 8), (10, 12), (11, 12),
+                                         (40, 16), (1024, 16)])
+def test_row_tile_is_the_least_that_holds_the_rows(n_rows, tile):
+    assert attention.row_tile(n_rows) == tile
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -171,3 +218,81 @@ def test_cuda_row_kernels_match_plain():
     got = dtv.dtv_triton(xt[:4], xt[4:8])
     torch.testing.assert_close(got, dtv.dtv_plain(xt[:4], xt[4:8]),
                                rtol=0, atol=1e-5)
+
+
+def paged_gpu_case(T, g, D, bs, R, lens, Hkv=4, seed=7, hole=True):
+    """Paged operands at kernel-edge shapes: rows of ``lens`` causal
+    entries (the last T are the query block), block tables from a shuffled
+    pool with an unallocated (-1) entry in the middle of row 0 (its mask
+    columns False), and rows of length 0 fully masked."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    P = B * R + 3
+    perm = rng.permutation(P)
+    tbl = np.full((B, R), -1, np.int32)
+    mask = np.zeros((B, T, R * bs), bool)
+    used = 0
+    for b, n in enumerate(lens):
+        nb = -(-n // bs)
+        tbl[b, :nb] = perm[used:used + nb]
+        used += nb
+        for t in range(T):
+            mask[b, t, :max(n - T + 1 + t, 0)] = True
+    if hole and lens[0] > 3 * bs:
+        tbl[0, 1] = -1
+        mask[0, :, bs:2 * bs] = False
+    q = rng.normal(size=(B, T, Hkv * g, D)).astype(np.float32)
+    k = rng.normal(size=(P * bs, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(P * bs, Hkv, D)).astype(np.float32)
+    return q, k, v, tbl, mask, bs
+
+
+def _paged_on_card(case, dtype):
+    q, k, v, tbl, mask, bs = case
+    return ([_t(a).cuda().to(dtype) for a in (q, k, v)]
+            + [_t(tbl).cuda(), _t(mask).cuda(), bs])
+
+
+# (T, g, D, bs, R, lens): chunks cut at a 40-slot block's end, a long row
+# split over many CTAs, every attended key inside one split, prefill
+PAGED_EDGE_CASES = {
+    "bs40": (5, 1, 128, 40, 7, [275, 131, 33, 0]),
+    "long": (5, 1, 128, 32, 128, [4090, 3072, 2048, 0]),
+    "one_split": (1, 8, 64, 32, 64, [20, 9, 31, 0]),
+    "prefill": (128, 2, 64, 32, 8, [200, 140, 128, 0]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", list(PAGED_EDGE_CASES))
+def test_cuda_paged_attention_edges_match_plain(name, dtype, tol):
+    _cuda_or_skip()
+    T, g, D, bs, R, lens = PAGED_EDGE_CASES[name]
+    args = _paged_on_card(paged_gpu_case(T, g, D, bs, R, lens), dtype)
+    got = attention.paged_attention_cuda(*args)
+    want = attention.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert bool((got[-1] == 0).all())           # fully masked row -> 0
+    again = attention.paged_attention_cuda(*args)
+    assert torch.equal(got, again)              # run to run, bit for bit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [256, 4096])
+def test_cuda_paged_row_does_not_depend_on_block_size(S):
+    """fp32 at llama-2-7b's shapes (g = 1, D = 128): a query row's output
+    from a T = 1 launch equals, bit for bit, its output as the last row of
+    a T = 5 launch over the same keys."""
+    _cuda_or_skip()
+    q, k, v, tbl, mask, bs = paged_gpu_case(5, 1, 128, 32, S // 32,
+                                            [S - 6, 3 * S // 4, S // 2, 0],
+                                            Hkv=32)
+    args = _paged_on_card((q, k, v, tbl, mask, bs), torch.float32)
+    five = attention.paged_attention_cuda(*args)
+    q1, m1 = args[0][:, -1:], args[4][:, -1:]
+    one = attention.paged_attention_cuda(q1, *args[1:4], m1, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(one[:, 0], five[:, -1])

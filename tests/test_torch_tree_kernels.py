@@ -159,3 +159,80 @@ def test_cuda_topk_matches_plain_with_ties(dtype):
         vals, idx = verify.topk_triton(x, k)
         vals0, idx0 = verify.topk_plain(x, k)
         assert torch.equal(idx, idx0) and torch.equal(vals, vals0)
+
+
+def contiguous_gpu_case(T, g, D, S, lens, Hkv=4, seed=8):
+    """Contiguous operands at kernel-edge shapes: rows of ``lens`` causal
+    entries (the last T are the query block) with rollback holes in the
+    long rows, and rows of length 0 fully masked."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q = rng.normal(size=(B, T, Hkv * g, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    mask = np.zeros((B, T, S), bool)
+    for b, n in enumerate(lens):
+        for t in range(T):
+            mask[b, t, :max(n - T + 1 + t, 0)] = True
+        if n > 2 * T + 80:
+            mask[b, :, 40:43] = False
+            mask[b, :, n // 2:n // 2 + 37] = False
+    return q, k, v, mask
+
+
+def _contiguous_on_card(case, dtype):
+    q, k, v, mask = case
+    return [_t(a).cuda().to(dtype) for a in (q, k, v)] + [_t(mask).cuda()]
+
+
+# (T, g, D, S, lens): S not a multiple of the chunk or of a split, every
+# attended key inside one split, prefill
+CONTIGUOUS_EDGE_CASES = {
+    "s250": (5, 1, 128, 250, [244, 131, 77, 0]),
+    "s4100": (10, 8, 64, 4100, [4094, 3075, 2050, 0]),
+    "decode_s4100": (1, 1, 128, 4100, [4094, 17, 2050, 0]),
+    "one_split": (1, 8, 64, 2048, [20, 9, 31, 0]),
+    "prefill": (128, 2, 64, 300, [290, 140, 128, 0]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", list(CONTIGUOUS_EDGE_CASES))
+def test_cuda_masked_attention_edges_match_plain(name, dtype, tol):
+    _cuda_or_skip()
+    T, g, D, S, lens = CONTIGUOUS_EDGE_CASES[name]
+    q, k, v, mask = _contiguous_on_card(
+        contiguous_gpu_case(T, g, D, S, lens), dtype)
+    if T == 1:
+        def run():
+            return attention.masked_decode_attention_cuda(q[:, 0], k, v,
+                                                          mask[:, 0])
+        want = attention.masked_decode_attention_plain(q[:, 0], k, v,
+                                                       mask[:, 0])
+    else:
+        def run():
+            return attention.masked_tree_attention_cuda(q, k, v, mask)
+        want = attention.masked_tree_attention_plain(q, k, v, mask)
+    got = run()
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert bool((got[-1] == 0).all())           # fully masked row -> 0
+    assert torch.equal(got, run())              # run to run, bit for bit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [256, 4096])
+def test_cuda_masked_row_does_not_depend_on_block_size(S):
+    """fp32 at llama-2-7b's shapes (g = 1, D = 128): a query row's output
+    from the decode launch (T = 1) equals, bit for bit, its output as the
+    last row of a T = 5 tree launch over the same keys."""
+    _cuda_or_skip()
+    q, k, v, mask = _contiguous_on_card(
+        contiguous_gpu_case(5, 1, 128, S, [S - 6, 3 * S // 4, S // 2, 0],
+                            Hkv=32), torch.float32)
+    five = attention.masked_tree_attention_cuda(q, k, v, mask)
+    one = attention.masked_decode_attention_cuda(q[:, -1], k, v, mask[:, -1])
+    torch.cuda.synchronize()
+    assert torch.equal(one, five[:, -1])
