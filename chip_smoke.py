@@ -7,8 +7,8 @@ Phases, each printing its own lines:
 
 1. device  — the card's name and power limit (``nvidia-smi``); no card,
              no run (exit 1).
-2. build   — compile the CUDA sources with nvcc (one process per source,
-             all started together) and the Triton kernels.
+2. build   — compile the three CUDA sources with nvcc (one process per
+             source, all started together) and the Triton kernels.
 3. kernels — every kernel against its plain PyTorch version at the main
              path's shapes, fp32 and bf16, with CUDA-event times, the
              plain version's time, the roofline bound and a library
@@ -25,6 +25,15 @@ Phases, each printing its own lines:
              T=5 launch.
              ``dtv`` is timed as the wrapper the probe calls: two
              softmax-stats launches and one |p - q| launch.
+             The row kernels (verify stats, top-k) also run at V+1 (odd,
+             misaligned rows), at the published vocabularies 151936 and
+             262144, on a strided (B, T+1, V) verify view and at k=8, with
+             ties on their slice boundaries; each case prints its plan
+             (cluster size, CTAs), must repeat bit for bit and gives its
+             share of the bytes bound and its time without the flush.
+             Then the floor (an empty kernel timed the same way, with and
+             without the flush) and the host microseconds per call of
+             ``ops.verify_row_stats`` and ``ops.draft_topk``.
 4. serving — the full-width Llama chain llama-68m -> tinyllama-1.1b ->
              llama-2-7b in bf16 with random weights, through
              ``ChainRouter.generate`` / ``RouterSession``: on the paged
@@ -74,6 +83,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.core.token_tree import TokenTree  # noqa: E402
 from repro_torch.kernels import attention, build, dtv, ops, verify  # noqa: E402
 
@@ -91,12 +101,12 @@ REPLACES = {
     "draft_topk": "src/repro/kernels/verify.py:133",
 }
 ROUTES = {"paged_attention": ("cuda", attention.SOURCE),
-          "verify_stats": ("triton", verify.SOURCE),
+          "verify_stats": ("cuda", verify.SOURCE),
           "softmax_stats": ("triton", dtv.SOURCE),
           "dtv": ("triton", dtv.SOURCE),
           "masked_decode_attention": ("cuda", attention.MASKED_SOURCE),
           "masked_tree_attention": ("cuda", attention.MASKED_SOURCE),
-          "draft_topk": ("triton", verify.SOURCE)}
+          "draft_topk": ("cuda", verify.SOURCE)}
 TREE = TokenTree((2, 2, 1))        # the smoke's tree shape: 10 nodes
 
 
@@ -136,13 +146,11 @@ def phase_build(device) -> float:
     are zeroed before the serving phase)."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         builds = [pool.submit(attention._launcher),
-                  pool.submit(attention.masked_launchers)]
+                  pool.submit(attention.masked_launchers),
+                  pool.submit(verify.launchers)]
         x = torch.randn(2, 4096, device=device)
-        verify.verify_stats_triton(x, torch.zeros(2, dtype=torch.int32,
-                                                  device=device))
-        verify.topk_triton(x, 2)
         dtv.dtv_triton(x, x)
         for b in builds:
             b.result()
@@ -239,12 +247,34 @@ def contiguous_case(device, H, Hkv, D, T, dtype, B=4, S=256, seed=4,
     return q.to(**to), k.to(**to), v.to(**to), mask.to(device)
 
 
+def _n_sm(device) -> int:
+    dev = torch.device(device)
+    return device_mod.sm_count(dev) if dev.type == "cuda" else 132
+
+
+def row_plan(device, R, V, dtype) -> tuple:
+    """``verify.row_split_plan`` of a launch over R rows of V ``dtype``
+    logits on ``device`` (132 SMs off the card)."""
+    return verify.row_split_plan(R, V, torch.finfo(dtype).bits // 8,
+                                 _n_sm(device))
+
+
+def _boundary_ties(device, R, V, dtype) -> list:
+    """Column pairs (b - 1, b) around every slice start b > 0 of the row
+    kernels' plan for this launch."""
+    C, per = row_plan(device, R, V, dtype)
+    return [(lo - 1, lo) for lo, _ in verify.slice_ranges(V, C, per)[1:]
+            if 0 < lo < V]
+
+
 def verify_case(device, dtype, R=20, V=32000, seed=1):
-    """Logits rows with planted argmax ties inside one tile, across tiles
-    and at the vocabulary's ends; half the candidates are the argmax."""
+    """Logits rows with planted argmax ties inside one tile, across tiles,
+    at the vocabulary's ends and on the row kernels' slice boundaries
+    (rows 5..); half the candidates are the argmax."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(R, V, generator=g) * 3.0
     ties = [(5, 6), (100, 2100), (0, V - 1), (2047, 2048), (17, V - 2000)]
+    ties += _boundary_ties(device, R, V, dtype)
     for r, (a, b) in enumerate(ties[:R]):
         top = x[r].max() + 1.0
         x[r, a] = top
@@ -266,7 +296,8 @@ def dtv_case(device, dtype, R=4, V=32000, seed=2):
 def topk_case(device, dtype, R, V=32000, seed=3):
     """Tree-draft logits rows with planted ties: inside one 2048-wide tile,
     across a tile boundary, at both ends of the vocabulary, a three-way tie
-    for the maximum and a tie for second place."""
+    for the maximum, a tie for second place (row 6) and, from row 7, ties
+    on the row kernels' slice boundaries."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(R, V, generator=g) * 3.0
     ties = [(5, 6), (2047, 2048), (0, V - 1), (100, 2100, V - 2000),
@@ -280,14 +311,18 @@ def topk_case(device, dtype, R, V=32000, seed=3):
         top = x[r].max()
         x[r, 7] = top + 2.0
         x[r, [300, 9000 % V]] = top + 1.0
+    for r, cols in enumerate(_boundary_ties(device, R, V, dtype)[:max(0, R - 7)],
+                             start=7):
+        x[r, list(cols)] = x[r].max() + 1.0
     return x.to(device=device, dtype=dtype)
 
 
-def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+def _time_ms(fn, iters: int, flush) -> float:
     """Median device time of ``fn`` from CUDA events, L2 evicted before
-    each launch (main-path callers find these operands cold).  A leading
-    device sleep lets the host enqueue every launch before the device
-    reaches them, so host overhead stays out of the events."""
+    each launch by writing ``flush`` (main-path callers find these operands
+    cold; ``flush=None`` times warm launches).  A leading device sleep lets
+    the host enqueue every launch before the device reaches them, so host
+    overhead stays out of the events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -295,7 +330,8 @@ def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(200_000_000)
     for e0, e1 in ev:
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         e0.record()
         fn()
         e1.record()
@@ -343,7 +379,7 @@ def _sdpa_call(q, k, v, mask, table=None, bs=None):
 
 def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
                   attn_shapes=None, V=32000, iters=50, timed=True,
-                  long_S=4096) -> list:
+                  long_S=4096, long_V=(151936, 262144)) -> list:
     """Every kernel (through its ``ops`` wrapper) against its plain
     version.  Returns one record per case; raises PhaseFailed when a case
     is outside its tolerance.  ``timed=False`` (the CPU rehearsal) skips
@@ -402,7 +438,7 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
     def plan(q, Hkv, S, bs):
         """(splits, CTAs) of this launch."""
         B, T, H, _ = q.shape
-        n_sm = (attention.sm_count(q.device) if q.device.type == "cuda"
+        n_sm = (device_mod.sm_count(q.device) if q.device.type == "cuda"
                 else 132)
         splits, _ = attention.split_plan(B, Hkv, S, bs, n_sm)
         rows = T * (H // Hkv)
@@ -455,6 +491,58 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
              _sdpa_call(q, k, v, mask) if timed else None,
              [list(q.shape), list(k.shape)], plan(q, Hkv, S, S), same_row)
 
+    def row_case(name, case, x, cand=None, k=None):
+        """One row-kernel case (verify stats with ``cand``, else the top-k):
+        the kernel against its plain version on the same rows, a second
+        launch that must agree bit for bit, the launch plan, the bytes
+        bound and, when timed, the time without the L2 flush too."""
+        rows = x.reshape(-1, x.shape[-1])
+        R, Vx = rows.shape
+        if cand is not None:
+            kernel = lambda: ops.verify_row_stats(x, cand)
+            plain = lambda: verify.verify_stats_plain(rows, cand.reshape(-1))
+            lib = None
+        else:
+            kernel = lambda: ops.draft_topk(x, k)
+            plain = lambda: verify.topk_plain(x, k)
+            lib = lambda: torch.topk(x, k, dim=-1)
+        got, again, want = kernel(), kernel(), plain()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        if cand is not None:
+            am, m, s, cl = (t.reshape(-1) for t in got)
+            am0, m0, s0, cl0 = want
+            ok = bool(torch.equal(am, am0) and torch.equal(m, m0))
+            rel = max(float(((s - s0).abs() / s0.abs()).max()),
+                      float(((cl - cl0).abs()
+                             / cl0.abs().clamp(min=1e-30)).max()))
+            fields = {"max_abs_err": max(float((s - s0).abs().max()),
+                                         float((cl - cl0).abs().max())),
+                      "max_rel_err": rel,
+                      "tol": "argmax,max exact; sumexp,cand rtol 1e-5"}
+            ok = ok and rel <= 1e-5
+            nbytes = rows.numel() * rows.element_size() + R * 4 + 4 * R * 4
+            nops = 5 * rows.numel()
+        else:
+            err = float((got[0] - want[0]).abs().max())
+            fields = {"max_abs_err": err, "tol": "indices exact; values 0"}
+            ok = bool(torch.equal(got[1], want[1])) and err == 0.0
+            nbytes = rows.numel() * rows.element_size() + R * k * 8
+            nops = k * rows.numel()
+        C, _ = row_plan(device, R, Vx, x.dtype)
+        print(f"[kernels] {name} {case}: plan C={C} ctas={R * C} "
+              f"bitwise_repeat={repeat}")
+        bms, by = _bound(nbytes, nops, PEAK_OPS[torch.float32])
+        rec = {"name": name, "case": case, "shape": list(x.shape),
+               "dtype": _dtname(x.dtype), **fields, "cluster": C,
+               "ctas": R * C, "bitwise_repeat": repeat, "pass": ok and repeat,
+               "bound_ms": bms, "bound_by": by}
+        add(rec, kernel, plain, lib)
+        if timed:
+            rec["bound_share"] = bms / rec["ms"]
+            rec["warm_ms"] = _time_ms(kernel, iters, None)
+            print(f"[kernels] {name} {case}: {rec['bound_share']:.1%} of the "
+                  f"bound; {rec['warm_ms']:.4f} ms without the L2 flush")
+
     first = next(iter(attn_shapes))     # llama-2-7b: fp32 long cases too
     for dt in dtypes:
         for model, (H, Hkv, D) in attn_shapes.items():
@@ -474,23 +562,22 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
                     contiguous(model, H, Hkv, D, T, dt, "causal", "", S=S,
                                lens=lens)
 
-        x, cand = verify_case(device, dt, V=V)
-        am, m, s, cl = ops.verify_row_stats(x, cand)
-        am0, m0, s0, cl0 = verify.verify_stats_plain(x, cand)
-        exact = bool(torch.equal(am, am0) and torch.equal(m, m0))
-        rel = max(float(((s - s0).abs() / s0.abs()).max()),
-                  float(((cl - cl0).abs() / cl0.abs().clamp(min=1e-30)).max()))
-        err = max(float((s - s0).abs().max()), float((cl - cl0).abs().max()))
-        R = x.shape[0]
-        bms, by = _bound(x.numel() * x.element_size() + R * 4 + 4 * R * 4,
-                         5 * x.numel(), PEAK_OPS[torch.float32])
-        add({"name": "verify_stats", "case": f"R={R} V={V} {_dtname(dt)}",
-             "shape": list(x.shape), "dtype": _dtname(dt),
-             "max_abs_err": err, "max_rel_err": rel,
-             "tol": "argmax,max exact; sumexp,cand rtol 1e-5",
-             "pass": exact and rel <= 1e-5, "bound_ms": bms, "bound_by": by},
-            lambda: ops.verify_row_stats(x, cand),
-            lambda: verify.verify_stats_plain(x, cand), None)
+        # verify row stats: the main path's R=20 (B=4 x T+1=5) rows, a row
+        # of odd length (hymba-1.5b, misaligned rows), the published
+        # vocabularies of qwen1.5-4b and gemma3-27b, and a verify block's
+        # (B, T+1, V) view of the forward's logits
+        for Vx in (V, V + 1, *long_V):
+            x, cand = verify_case(device, dt, V=Vx)
+            row_case("verify_stats", f"R=20 V={Vx} {_dtname(dt)}", x, cand)
+        x, cand = verify_case(device, dt, R=32, V=V)
+        view = x.reshape(4, 8, V)[:, 3:]
+        row_case("verify_stats", f"B=4 T+1=5 view V={V} {_dtname(dt)}",
+                 view, cand.reshape(4, 8)[:, 3:].contiguous())
+        # the tree verify's rows: B=4 x (the 2x2x1 tree's nodes + 1) = 44,
+        # which plans a smaller cluster than the linear verify's 20
+        R = 4 * (TREE.num_nodes + 1)
+        x, cand = verify_case(device, dt, R=R, V=V)
+        row_case("verify_stats", f"R={R} tree V={V} {_dtname(dt)}", x, cand)
 
         a, b = dtv_case(device, dt, V=V)
         ma, sa = ops.softmax_stats(a)
@@ -522,25 +609,60 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
 
         # every (R, k) the tree runs launch at B = 4: 2x2x1 expands 1, 2
         # and 4 parents per row with k = 2, 2, 1; 2x1x1 and 2x1 expand 1
-        # and then 2 with k = 2 and then 1
-        for k in (1, 2):
-            for R in (4, 8, 16):
-                x = topk_case(device, dt, R, V=V)
-                vals, idx = ops.draft_topk(x, k)
-                vals0, idx0 = verify.topk_plain(x, k)
-                err = float((vals - vals0).abs().max())
-                bms, by = _bound(x.numel() * x.element_size() + R * k * 8,
-                                 k * x.numel(), PEAK_OPS[torch.float32])
-                add({"name": "draft_topk", "case": f"R={R} V={V} k={k} "
-                     f"{_dtname(dt)}", "shape": list(x.shape),
-                     "dtype": _dtname(dt), "max_abs_err": err,
-                     "tol": "indices exact; values 0",
-                     "pass": bool(torch.equal(idx, idx0)) and err == 0.0,
-                     "bound_ms": bms, "bound_by": by},
-                    lambda: ops.draft_topk(x, k),
-                    lambda: verify.topk_plain(x, k),
-                    lambda: torch.topk(x, k, dim=-1))
+        # and then 2 with k = 2 and then 1; then k = 8, a row of odd
+        # length and the published long vocabularies at R = 16, k = 2
+        topk_cases = [(R, V, k) for k in (1, 2) for R in (4, 8, 16)]
+        topk_cases += [(16, V, 8), (16, V + 1, 2)]
+        topk_cases += [(16, Vx, 2) for Vx in long_V]
+        for R, Vx, k in topk_cases:
+            x = topk_case(device, dt, R, V=Vx)
+            row_case("draft_topk", f"R={R} V={Vx} k={k} {_dtname(dt)}", x,
+                     k=k)
     return records
+
+
+def kernel_floor(device, iters=200) -> dict:
+    """The timing method's own floor: a kernel that does nothing (torch's
+    one-thread spin kernel, ``torch.cuda._sleep``, asked for 0 cycles)
+    timed by ``_time_ms`` with the 256 MB L2 flush before each launch and
+    without it.  Off the card there is nothing to time."""
+    if torch.device(device).type != "cuda":
+        return {"flushed_ms": None, "unflushed_ms": None}
+    launch = lambda: torch.cuda._sleep(0)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=device)
+    out = {"flushed_ms": _time_ms(launch, iters, flush),
+           "unflushed_ms": _time_ms(launch, iters, None)}
+    print(f"[kernels] floor: empty kernel {out['flushed_ms']:.4f} ms with "
+          f"the 256 MB flush, {out['unflushed_ms']:.4f} ms without")
+    return out
+
+
+def host_cost(device, V=32000, calls=1000, m=ops) -> dict:
+    """Median host microseconds per call of ``m.verify_row_stats`` (R=20
+    rows) and ``m.draft_topk`` (R=16, k=2) on fp32 rows of V: ``calls``
+    calls each after 20 of warm-up, a sync only before every 100th call
+    (outside the timing) so the launch queue stays shallow.  ``m`` is a
+    port's ``kernels.ops`` (``tools/host_cost_ab.py`` passes another
+    checkout's)."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(20, V, generator=g).to(device)
+    cand = torch.zeros(20, dtype=torch.int32, device=device)
+    t = torch.randn(16, V, generator=g).to(device)
+    out = {}
+    for op, fn in (("verify_row_stats", lambda: m.verify_row_stats(x, cand)),
+                   ("draft_topk", lambda: m.draft_topk(t, 2))):
+        for _ in range(20):
+            fn()
+        us = []
+        for i in range(calls):
+            if i % 100 == 0:
+                _sync(device)
+            t0 = time.perf_counter_ns()
+            fn()
+            us.append((time.perf_counter_ns() - t0) / 1e3)
+        _sync(device)
+        out[op] = float(np.median(us))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -706,8 +828,8 @@ def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
 
 
 KERNEL_CLASSES = (("attention", ("flash_decode_kernel", "combine_kernel")),
-                  ("row_kernels", ("_verify_stats_body", "_softmax_stats_body",
-                                   "_dtv_body", "_topk_body")),
+                  ("row_kernels", ("row_reduce_kernel", "_softmax_stats_body",
+                                   "_dtv_body")),
                   ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")))
 
 
@@ -956,6 +1078,10 @@ def main() -> int:
         dev = timed("device", phase_device)
         build_s = timed("build", phase_build, "cuda")
         records = timed("kernels", phase_kernels, "cuda")
+        floor = kernel_floor("cuda")
+        host = host_cost("cuda")
+        print(f"[kernels] host cost: median us per call over 1000 calls "
+              f"(V=32000, a sync every 100 calls): {host}")
         from repro_torch.configs import llama_pool
         chain = llama_pool.full_pool()[:3]
         serving = timed("serving", phase_serving, "cuda", chain)
@@ -975,7 +1101,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "build_s": build_s, "phase_s": phase_s,
-         "ptxas": ptxas_report(), "cases": records,
+         "ptxas": ptxas_report(), "cases": records, "floor": floor,
+         "host_us_per_call": host,
          "serving": serving, "output": output, "kernels": line}, indent=1))
     print(f"[device] {dev['smi']}")
     print(json.dumps({"kernels": line}))

@@ -48,26 +48,24 @@ def verify_greedy(candidates: torch.Tensor, verifier_logits: torch.Tensor,
     candidate_probs (B, T, V) is optional — used only for the DTV metric.
     active (B,) masks finished rows (their result is a no-op)."""
     B, T = candidates.shape
-    V = verifier_logits.shape[-1]
-    rows = verifier_logits.reshape(B * (T + 1), V)
-    cand_rows = torch.cat(
-        [candidates, candidates.new_zeros((B, 1))], dim=1).reshape(-1)
-    am, m, s, _ = ops.verify_row_stats(rows, cand_rows)
-    preds = am.reshape(B, T + 1).long()
+    # the kernel reads the (B, T+1, V) rows in place, strided or not
+    cand_rows = torch.cat([candidates, candidates.new_zeros((B, 1))], dim=1)
+    am, m, s, _ = ops.verify_row_stats(verifier_logits, cand_rows)
+    preds = am.long()
     match = preds[:, :T] == candidates.long()
     k = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
     next_token = torch.gather(preds, 1, k[:, None])[:, 0]
     # probabilities from the kernel's (max, sumexp): no second softmax pass
-    m = m.reshape(B, T + 1, 1)
-    s = s.reshape(B, T + 1, 1)
-    at_k = torch.arange(B, device=rows.device) * (T + 1) + k
-    next_probs = (torch.exp(rows[at_k].float() - m.reshape(-1, 1)[at_k])
-                  / s.reshape(-1, 1)[at_k])
+    b = torch.arange(B, device=verifier_logits.device)
+    next_probs = (torch.exp(verifier_logits[b, k].float() - m[b, k, None])
+                  / s[b, k, None])
     if candidate_probs is not None:
-        p = torch.exp(verifier_logits[:, :T].float() - m[:, :T]) / s[:, :T]
+        p = (torch.exp(verifier_logits[:, :T].float() - m[:, :T, None])
+             / s[:, :T, None])
         dtv = dtv_probs(p, candidate_probs.float()).mean(dim=-1)
     else:
-        dtv = torch.zeros((B,), dtype=torch.float32, device=rows.device)
+        dtv = torch.zeros((B,), dtype=torch.float32,
+                          device=verifier_logits.device)
     r = T - k
     if active is not None:
         zero = torch.zeros_like(k)
@@ -118,15 +116,14 @@ def verify_tree(tree, candidates: torch.Tensor,
     that sat the cycle out."""
     B, N = candidates.shape
     D = tree.depth_levels
-    V = verifier_logits.shape[-1]
     dev = candidates.device
     parent_rows = torch.as_tensor(tree.parent + 1, device=dev).long()
     attend = torch.as_tensor(tree.attend, device=dev)
     paths = torch.as_tensor(tree.paths, device=dev).long()
-    rows = verifier_logits.reshape(B * (N + 1), V)
     am, m, s, _ = ops.verify_row_stats(
-        rows, torch.zeros(B * (N + 1), dtype=torch.int32, device=dev))
-    preds = am.reshape(B, N + 1).long()
+        verifier_logits, torch.zeros((B, N + 1), dtype=torch.int32,
+                                     device=dev))
+    preds = am.long()
     match = (candidates.long() == preds[:, parent_rows]) & node_valid
     accept = _path_closure(attend, match)
     k, path_nodes = _best_path(paths, accept)
@@ -134,11 +131,12 @@ def verify_tree(tree, candidates: torch.Tensor,
                         (k.long() - 1).clamp(0, D - 1)[:, None])[:, 0]
     pos = torch.where(k > 0, last + 1, 0)                       # bonus row
     next_token = torch.gather(preds, 1, pos[:, None])[:, 0]
-    at = torch.arange(B, device=dev) * (N + 1) + pos
-    next_probs = torch.exp(rows[at].float() - m[at, None]) / s[at, None]
+    b = torch.arange(B, device=dev)
+    next_probs = (torch.exp(verifier_logits[b, pos].float() - m[b, pos, None])
+                  / s[b, pos, None])
     if candidate_probs is not None:
-        mp = m.reshape(B, N + 1)[:, parent_rows, None]
-        sp = s.reshape(B, N + 1)[:, parent_rows, None]
+        mp = m[:, parent_rows, None]
+        sp = s[:, parent_rows, None]
         p_par = torch.exp(verifier_logits[:, parent_rows].float() - mp) / sp
         d = dtv_probs(p_par, candidate_probs.float())            # (B, N)
         nv = node_valid.float()

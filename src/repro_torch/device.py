@@ -2,6 +2,8 @@
 caller asks for the CPU."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -16,3 +18,10 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once (the kernels'
+    launch plans read it on every call)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -32,11 +32,11 @@ return 0.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
+from ..device import sm_count
 from ..models.layers import gqa_attention
 from .build import LaunchCounter, load_cuda_library
 
@@ -119,12 +119,6 @@ def split_ranges(S: int, bs: int, splits: int, per: int) -> list:
     n_chunks = (S // bs) * cpb
     return [(start(i * per), start(min(n_chunks, (i + 1) * per)))
             for i in range(splits)]
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device, read once."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _plan_and_scratch(q: torch.Tensor, B: int, Hkv: int, S: int, bs: int):

@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from .build import LaunchCounter, use_build_dir_for_triton
-from .verify import check_rows
 
 STATS_COUNTER = LaunchCounter("softmax_stats")
 DTV_COUNTER = LaunchCounter("dtv")
@@ -38,6 +37,19 @@ def dtv_probs(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """0.5 · Σ_v |p − q| over the last axis (paper Eq. 5), probability
     domain."""
     return 0.5 * torch.sum(torch.abs(p - q), dim=-1)
+
+
+def check_rows(logits: torch.Tensor, *others: torch.Tensor) -> None:
+    """Operand checks of the softmax-stats and DTV kernels."""
+    if logits.dim() != 2 or logits.stride(1) != 1:
+        raise ValueError(f"expected (R, V) logits with unit column stride, "
+                         f"got shape {tuple(logits.shape)} strides "
+                         f"{logits.stride()}")
+    if logits.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"unsupported logits dtype {logits.dtype}")
+    for t in others:
+        if t.device != logits.device:
+            raise ValueError("row-kernel operands must share one device")
 
 
 def _softmax_stats_body(x_ptr, m_ptr, s_ptr, V, stride,

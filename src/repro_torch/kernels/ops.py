@@ -79,15 +79,20 @@ def draft_topk(logits: torch.Tensor, k: int):
     """(R, V) -> (values (R, k) f32, indices (R, k) int32), ties to the
     first maximal index: every parent's k greedy children in one pass."""
     if _on_cuda(logits):
-        return _verify.topk_triton(logits, k)
+        return _verify.topk_cuda(logits, k)
     return _verify.topk_plain(logits, k)
 
 
 def verify_row_stats(logits: torch.Tensor, cand: torch.Tensor):
-    """logits (R, V); cand (R,) -> (argmax, max, sumexp, cand_logit)."""
+    """logits (R, V), or a (B, T, V) view such as a verify block's rows;
+    cand of the rows' shape -> (argmax, max, sumexp, cand_logit), each of
+    the rows' shape.  The kernel reads a strided view in place."""
     if _on_cuda(logits, cand):
-        return _verify.verify_stats_triton(logits, cand)
-    return _verify.verify_stats_plain(logits, cand)
+        return _verify.verify_stats_cuda(logits, cand)
+    rows = logits.shape[:-1]
+    out = _verify.verify_stats_plain(logits.reshape(-1, logits.shape[-1]),
+                                     cand.reshape(-1))
+    return tuple(t.reshape(rows) for t in out)
 
 
 def softmax_stats(logits: torch.Tensor):

@@ -1,130 +1,99 @@
-"""Row kernels of verification and tree drafting: the Triton kernels'
-wrappers and their plain PyTorch versions.
+"""Row kernels of verification and tree drafting: the CUDA kernels'
+wrappers, their plain PyTorch versions and the row-split plan.
 
-Verify row statistics.
-Replaces ``repro/kernels/verify.py:verify_stats_pallas`` (TPU body
+Verify row statistics (``verify_stats_cuda``).  Replaces
+``repro/kernels/verify.py:verify_stats_pallas`` (TPU body
 ``_verify_kernel``).  Per logits row, in one read of the row: argmax
 (first maximal index), max, sumexp rescaled to that max, and the logit at
 the row's candidate token.  ``verify_greedy`` takes the greedy match from
 the argmax and the verifier's probabilities from (max, sumexp), so no
-second softmax pass runs over the (B, T+1, V) logits.
+second softmax pass runs over the (B, T+1, V) logits; the wrapper reads a
+(B, T+1, V) view with any batch and row strides in place.
 
-What bounds it on the H100: one read of the logits (B·(T+1) rows × V=32000
-here); there is no matrix product.  Design: one Triton program per row
-walks the vocabulary in 2048-wide masked tiles, keeping per-lane running
-(max, rescaled sum, first argmax) vectors so every lane reduction happens
-once at the end; masked lanes load -inf and never contribute.  Ties go to
-the first maximal index: a lane replaces its argmax only on a strictly
-greater value, and the final pick is the smallest index among the lanes
-holding the global max.  The candidate logit is one direct load.
+Row-wise top-k (``topk_cuda``, ``ops.draft_topk``).  Replaces
+``repro/kernels/verify.py:topk_pallas`` (``_topk_kernel``,
+``_select_topk``): every parent node's k best children (k <= ``MAX_TOPK``)
+for the greedy tree-draft expansion, ties to the first maximal index so
+column 0 equals the argmax and a branching-1 tree is bit-identical to the
+linear draft.
 
-Row-wise top-k (``draft_topk``).  Replaces ``repro/kernels/verify.py:
-topk_pallas`` (``_topk_kernel``, ``_select_topk``): every parent node's k
-best children (k small and static) for the greedy tree-draft expansion,
-ties to the first maximal index so column 0 equals the argmax and a
-branching-1 tree is bit-identical to the linear draft.  What bounds it on
-the H100: one read of the (R, V) logits; R is a few parents.  Design: one
-Triton program per row walks 2048-wide vocab tiles and keeps the running
-top k in registers.  Per tile it runs k rounds over the union of the
-running entries and the tile: take the maximum, then the smallest index
-holding it, and retire that winner (a liveness flag, so -inf logits stay
-selectable).  Running entries come from earlier tiles and so carry the
-smaller indices; taking the smallest index among equal values therefore
-keeps the first-maximal-index order across tiles, as the TPU kernel did
-by merging the running entries first.
+Both are hand-written CUDA C++ for sm_90a on one body
+(``csrc/row_reduce.cuh``, entry points in ``csrc/row_kernels.cu``), built
+with ``nvcc`` at first use and called through ``ctypes``.  What bounds
+them on the H100: one read of the logits (few rows of V = 32000 on the
+main path, up to 262144 in the repository's configurations).
+``row_split_plan`` cuts each row into C slices reduced by one thread-block
+cluster of C CTAs, so that the few rows still fill the card; the CTAs'
+partials are merged in rank order through distributed shared memory under
+the total order (value descending, index ascending), so the selection
+does not depend on the split.  The plan reads no tensor, so the wrappers
+add no host sync.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from .build import LaunchCounter, use_build_dir_for_triton
+from ..device import sm_count
+from .build import LaunchCounter, load_cuda_library
 
 COUNTER = LaunchCounter("verify_stats")
 TOPK_COUNTER = LaunchCounter("draft_topk")
-SOURCE = "src/repro_torch/kernels/verify.py"
-BLOCK_V = 2048
+SOURCE = "src/repro_torch/csrc/row_kernels.cu"
 MAX_TOPK = 8
+MAX_CLUSTER = 8            # CTAs per row: the portable cluster size
+MIN_SLICE_BYTES = 4096     # a CTA's slice is not cut below this
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-tl = None      # triton.language, bound at the first launch
-_kernel = None
-_topk_kernel = None
-
-
-def _verify_stats_body(x_ptr, cand_ptr, am_ptr, m_ptr, s_ptr, cl_ptr, V,
-                       stride, BLOCK: "tl.constexpr"):
-    row = tl.program_id(0)
-    base = x_ptr + row.to(tl.int64) * stride
-    offs = tl.arange(0, BLOCK)
-    m_vec = tl.full([BLOCK], -float("inf"), tl.float32)
-    s_vec = tl.zeros([BLOCK], tl.float32)
-    a_vec = tl.zeros([BLOCK], tl.int32)
-    for start in range(0, V, BLOCK):
-        cols = start + offs
-        x = tl.load(base + cols, mask=cols < V,
-                    other=-float("inf")).to(tl.float32)
-        a_vec = tl.where(x > m_vec, cols, a_vec)
-        m_new = tl.maximum(m_vec, x)
-        live = m_new > -float("inf")
-        s_vec = (s_vec * tl.where(live, tl.exp(m_vec - m_new), 0.0)
-                 + tl.where(live, tl.exp(x - m_new), 0.0))
-        m_vec = m_new
-    m = tl.max(m_vec, 0)
-    am = tl.min(tl.where(m_vec == m, a_vec, V), 0)
-    s = tl.sum(tl.where(m_vec > -float("inf"),
-                        s_vec * tl.exp(m_vec - m), 0.0), 0)
-    cand = tl.load(cand_ptr + row)
-    cl = tl.load(base + cand).to(tl.float32)
-    tl.store(am_ptr + row, am)
-    tl.store(m_ptr + row, m)
-    tl.store(s_ptr + row, s)
-    tl.store(cl_ptr + row, cl)
+_fns: dict = {}
 
 
-def _topk_body(x_ptr, v_ptr, i_ptr, V, stride, K: "tl.constexpr",
-               KP: "tl.constexpr", BLOCK: "tl.constexpr"):
-    row = tl.program_id(0)
-    base = x_ptr + row.to(tl.int64) * stride
-    offs = tl.arange(0, BLOCK)
-    koffs = tl.arange(0, KP)
-    big = V + BLOCK                       # above every real index
-    run_v = tl.full([KP], -float("inf"), tl.float32)
-    run_i = tl.full([KP], 0, tl.int32) + big
-    for start in range(0, V, BLOCK):
-        cols = start + offs
-        x = tl.load(base + cols, mask=cols < V,
-                    other=-float("inf")).to(tl.float32)
-        x_live = cols < V
-        r_live = run_i < big
-        new_v = tl.full([KP], -float("inf"), tl.float32)
-        new_i = tl.full([KP], 0, tl.int32) + big
-        for j in tl.static_range(K):
-            m = tl.maximum(
-                tl.max(tl.where(x_live, x, -float("inf")), 0),
-                tl.max(tl.where(r_live, run_v, -float("inf")), 0))
-            i_run = tl.min(tl.where(r_live & (run_v == m), run_i, big), 0)
-            i_tile = tl.min(tl.where(x_live & (x == m), cols, big), 0)
-            win = tl.minimum(i_run, i_tile)
-            new_v = tl.where(koffs == j, m, new_v)
-            new_i = tl.where(koffs == j, win, new_i)
-            r_live = r_live & (run_i != win)
-            x_live = x_live & (cols != win)
-        run_v = new_v
-        run_i = new_i
-    out = row.to(tl.int64) * K + koffs
-    tl.store(v_ptr + out, run_v, mask=koffs < K)
-    tl.store(i_ptr + out, run_i, mask=koffs < K)
+def _launcher(symbol: str, n_ptrs: int, n_ints: int):
+    """ctypes binding of a ``row_kernels.cu`` launcher: ``n_ptrs``
+    pointers, then R, V, T1, the two 64-bit strides, ``n_ints`` more ints
+    and the stream."""
+    if symbol not in _fns:
+        fn = getattr(load_cuda_library("row_kernels.cu"), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return _fns[symbol]
 
 
-def _compiled():
-    global tl, _kernel, _topk_kernel
-    if _kernel is None:
-        use_build_dir_for_triton()
-        import triton
-        import triton.language
-        tl = triton.language
-        _kernel = triton.jit(_verify_stats_body)
-        _topk_kernel = triton.jit(_topk_body)
-    return _kernel
+def launchers():
+    """(statistics launcher, top-k launcher) of ``csrc/row_kernels.cu``."""
+    return (_launcher("row_stats_launch", 6, 3),
+            _launcher("row_topk_launch", 3, 4))
+
+
+def row_split_plan(R: int, V: int, elt_bytes: int, n_sm: int) -> tuple:
+    """CTAs per row and columns per CTA of one launch: ``(C, per)``.
+
+    C doubles from 1 while the R·C CTAs are fewer than the SMs, C is below
+    ``MAX_CLUSTER`` and the slices would stay at least
+    ``MIN_SLICE_BYTES``.  ``per`` is a multiple of 16 bytes of elements, so
+    every slice starts on a 16-byte boundary of the row.  The plan reads
+    no tensor, so it costs no host sync."""
+    if min(R, V, elt_bytes, n_sm) <= 0 or 16 % elt_bytes:
+        raise ValueError(f"bad row-split inputs R={R} V={V} "
+                         f"elt_bytes={elt_bytes} n_sm={n_sm}")
+    C = 1
+    while (C < MAX_CLUSTER and R * C < n_sm
+           and V * elt_bytes >= 2 * C * MIN_SLICE_BYTES):
+        C *= 2
+    unit = 16 // elt_bytes
+    per = -(-V // (C * unit)) * unit
+    return C, per
+
+
+def slice_ranges(V: int, C: int, per: int) -> list:
+    """The columns ``[lo, hi)`` of each CTA of a row under a plan (an
+    empty range where the row ends before the CTA's slice)."""
+    return [(min(V, r * per), min(V, (r + 1) * per)) for r in range(C)]
 
 
 def verify_stats_plain(logits: torch.Tensor, cand: torch.Tensor):
@@ -137,38 +106,6 @@ def verify_stats_plain(logits: torch.Tensor, cand: torch.Tensor):
     return am.to(torch.int32), m, s, cl
 
 
-def check_rows(logits: torch.Tensor, *others: torch.Tensor) -> None:
-    """Shared operand checks of the row-reduction kernels."""
-    if logits.dim() != 2 or logits.stride(1) != 1:
-        raise ValueError(f"expected (R, V) logits with unit column stride, "
-                         f"got shape {tuple(logits.shape)} strides "
-                         f"{logits.stride()}")
-    if logits.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"unsupported logits dtype {logits.dtype}")
-    for t in others:
-        if t.device != logits.device:
-            raise ValueError("row-kernel operands must share one device")
-
-
-def verify_stats_triton(logits: torch.Tensor, cand: torch.Tensor):
-    """Launch the Triton kernel (same arguments and result as
-    ``verify_stats_plain``)."""
-    check_rows(logits, cand)
-    R, V = logits.shape
-    if tuple(cand.shape) != (R,):
-        raise ValueError(f"cand must be ({R},), got {tuple(cand.shape)}")
-    dev = logits.device
-    cand = cand.to(torch.int32).contiguous()
-    am = torch.empty(R, dtype=torch.int32, device=dev)
-    m = torch.empty(R, dtype=torch.float32, device=dev)
-    s = torch.empty(R, dtype=torch.float32, device=dev)
-    cl = torch.empty(R, dtype=torch.float32, device=dev)
-    _compiled()[(R,)](logits, cand, am, m, s, cl, V, logits.stride(0),
-                      BLOCK=BLOCK_V, num_warps=8)
-    COUNTER.count += 1
-    return am, m, s, cl
-
-
 def topk_plain(logits: torch.Tensor, k: int):
     """(R, V) -> (values (R, k) f32, indices (R, k) int32), ties to the
     first maximal index (a stable descending sort, ``ref.topk_ref``;
@@ -178,19 +115,84 @@ def topk_plain(logits: torch.Tensor, k: int):
     return torch.gather(x, 1, order), order.to(torch.int32)
 
 
-def topk_triton(logits: torch.Tensor, k: int):
-    """Launch the Triton top-k kernel (same arguments and result as
-    ``topk_plain``)."""
-    check_rows(logits)
-    R, V = logits.shape
+
+
+def _rows(logits: torch.Tensor) -> tuple:
+    """``(R, V, T1, sb, st)`` of (R, V) rows or of a (B, T1, V) view: row
+    r starts at element (r // T1)·sb + (r % T1)·st; unit column stride."""
+    if logits.dim() not in (2, 3) or logits.stride(-1) != 1:
+        raise ValueError(f"expected (R, V) or (B, T, V) logits with unit "
+                         f"column stride, got shape {tuple(logits.shape)} "
+                         f"strides {logits.stride()}")
+    if logits.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the row kernels take float32 or bfloat16 logits, "
+                        f"got {logits.dtype}")
+    if logits.dim() == 2:
+        R, V = logits.shape
+        return R, V, R, 0, logits.stride(0)
+    B, T1, V = logits.shape
+    return B * T1, V, T1, logits.stride(0), logits.stride(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(R: int, V: int, elt_bytes: int, device: int) -> tuple:
+    """``row_split_plan`` of a launch on CUDA device ``device``, cached:
+    the wrappers' host time is on the serving loop's path."""
+    return row_split_plan(R, V, elt_bytes,
+                          sm_count(torch.device("cuda", device)))
+
+
+def _launch_args(logits: torch.Tensor, R: int, V: int) -> tuple:
+    """(C, per, dtype code, stream) of a launch: the plan and torch's
+    current raw stream on the logits' device (the public
+    ``torch.cuda.current_stream`` costs ~5 µs of host time per call)."""
+    dev = logits.device.index
+    C, per = _plan(R, V, logits.element_size(), dev)
+    return (C, per, _DTYPE_CODE[logits.dtype],
+            torch._C._cuda_getCurrentRawStream(dev))
+
+
+def verify_stats_cuda(logits: torch.Tensor, cand: torch.Tensor):
+    """Launch the statistics kernel on torch's current stream.  logits
+    (R, V), or a (B, T, V) view with any batch and row strides; cand of
+    the rows' shape -> (argmax int32, max f32, sumexp f32, cand_logit f32),
+    each of the rows' shape (``verify_stats_plain`` on the rows)."""
+    R, V, T1, sb, st = _rows(logits)
+    shape = logits.shape[:-1]
+    if cand.shape != shape or cand.device != logits.device:
+        raise ValueError(f"cand must be {tuple(shape)} on {logits.device}, "
+                         f"got {tuple(cand.shape)} on {cand.device}")
+    if cand.dtype != torch.int32 or not cand.is_contiguous():
+        cand = cand.to(torch.int32).contiguous()
+    # one allocation for the four outputs: each torch.empty costs ~2 µs of
+    # host time on the serving loop's path
+    am, m, s, cl = torch.empty((4, *shape), dtype=torch.float32,
+                               device=logits.device).unbind(0)
+    am = am.view(torch.int32)
+    err = _launcher("row_stats_launch", 6, 3)(logits.data_ptr(), cand.data_ptr(), am.data_ptr(),
+                         m.data_ptr(), s.data_ptr(), cl.data_ptr(), R, V, T1,
+                         sb, st, *_launch_args(logits, R, V))
+    if err != 0:
+        raise RuntimeError(f"row_stats_launch failed: cudaError {err}")
+    COUNTER.count += 1
+    return am, m, s, cl
+
+
+def topk_cuda(logits: torch.Tensor, k: int):
+    """Launch the top-k kernel on torch's current stream (same arguments
+    and result as ``topk_plain``)."""
+    if logits.dim() != 2:
+        raise ValueError(f"top-k takes (R, V) logits, got "
+                         f"{tuple(logits.shape)}")
+    R, V, T1, sb, st = _rows(logits)
     if not 1 <= k <= min(MAX_TOPK, V):
         raise ValueError(f"top-k takes 1 <= k <= {min(MAX_TOPK, V)}, got {k}")
     dev = logits.device
     vals = torch.empty((R, k), dtype=torch.float32, device=dev)
     idx = torch.empty((R, k), dtype=torch.int32, device=dev)
-    _compiled()
-    kp = max(2, 1 << (k - 1).bit_length())   # tl.arange needs a power of 2
-    _topk_kernel[(R,)](logits, vals, idx, V, logits.stride(0), K=k, KP=kp,
-                       BLOCK=BLOCK_V, num_warps=8)
+    err = _launcher("row_topk_launch", 3, 4)(logits.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                         R, V, T1, sb, st, k, *_launch_args(logits, R, V))
+    if err != 0:
+        raise RuntimeError(f"row_topk_launch failed: cudaError {err}")
     TOPK_COUNTER.count += 1
     return vals, idx

@@ -33,7 +33,8 @@ def _tiny_chain():
 def test_kernel_phase_rehearsal():
     ops.reset_launch_counts()
     recs = chip_smoke.phase_kernels("cpu", attn_shapes={"tiny": (4, 2, 16)},
-                                    V=3000, timed=False, long_S=96)
+                                    V=3000, timed=False, long_S=96,
+                                    long_V=(6000, 8192))
     assert {r["name"] for r in recs} == set(chip_smoke.REPRESENTATIVE)
     assert all(r["pass"] and r["ms"] is None for r in recs)
     attn = [r for r in recs if "attention" in r["name"]]
@@ -50,6 +51,35 @@ def test_kernel_phase_rehearsal():
     for k in (1, 2):
         for R in (4, 8, 16):
             assert ("draft_topk", f"R={R} V=3000 k={k} bfloat16") in cases
+    rows = [r for r in recs if r["name"] in ("verify_stats", "draft_topk")]
+    assert all(r["bitwise_repeat"] and r["cluster"] in (1, 2, 4, 8)
+               and r["ctas"] >= r["cluster"] for r in rows)
+    for dt in ("float32", "bfloat16"):
+        for V in (3000, 3001, 6000, 8192):
+            assert ("verify_stats", f"R=20 V={V} {dt}") in cases
+        assert ("verify_stats", f"B=4 T+1=5 view V=3000 {dt}") in cases
+        assert ("verify_stats", f"R=44 tree V=3000 {dt}") in cases
+        for R, V, k in ((16, 3000, 8), (16, 3001, 2), (16, 6000, 2),
+                        (16, 8192, 2)):
+            assert ("draft_topk", f"R={R} V={V} k={k} {dt}") in cases
+
+
+def test_floor_and_host_cost_rehearsal():
+    """Off the card the floor has nothing to time; the host-cost line
+    times the plain versions behind the same ``ops`` calls, for this
+    checkout's ``ops`` and for a second copy of the package loaded under
+    another name the way ``tools/host_cost_ab.py`` loads another
+    checkout's."""
+    assert chip_smoke.kernel_floor("cpu") == {"flushed_ms": None,
+                                              "unflushed_ms": None}
+    sys.path.insert(0, str(ROOT / "tools"))
+    import host_cost_ab
+    other = host_cost_ab.load_other_ops(ROOT / "src")
+    assert other is not ops and other.__name__.startswith("other_")
+    for m in (ops, other):
+        host = chip_smoke.host_cost("cpu", V=3000, calls=4, m=m)
+        assert set(host) == {"verify_row_stats", "draft_topk"}
+        assert all(v > 0 for v in host.values())
 
 
 def test_serving_and_output_phase_rehearsal():

@@ -1,5 +1,5 @@
-"""Import hygiene of the PyTorch port: ``src/repro_torch`` and
-``chip_smoke.py`` import neither JAX nor the reference package, import
+"""Import hygiene of the PyTorch port: ``src/repro_torch``,
+``chip_smoke.py`` and ``tools/host_cost_ab.py`` import neither JAX nor the reference package, import
 Triton only inside the functions that launch its kernels, and name no
 file ``ref.py`` under ``kernels/`` (that name is the reference's oracle
 table, which the speclint meta rule looks up by file name)."""
@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tools" / "host_cost_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -210,7 +210,7 @@ def test_cuda_row_kernels_match_plain():
     _cuda_or_skip()
     x, cand = verify_case(V=32000)
     xt, ct = _t(x).cuda(), _t(cand).cuda()
-    am, m, s, cl = verify.verify_stats_triton(xt, ct)
+    am, m, s, cl = verify.verify_stats_cuda(xt, ct)
     am0, m0, s0, cl0 = verify.verify_stats_plain(xt, ct)
     assert torch.equal(am, am0) and torch.equal(m, m0)
     torch.testing.assert_close(s, s0, rtol=1e-5, atol=0)
