@@ -8,7 +8,7 @@ Phases, each printing its own lines:
 1. device  — the card's name and power limit (``nvidia-smi``); no card,
              no run (exit 1).
 2. build   — compile the three CUDA sources with nvcc (one process per
-             source, all started together) and the Triton kernels.
+             source, all started together).
 3. kernels — every kernel against its plain PyTorch version at the main
              path's shapes, fp32 and bf16, with CUDA-event times, the
              plain version's time, the roofline bound and a library
@@ -23,17 +23,20 @@ Phases, each printing its own lines:
              key-split plan, must repeat bit for bit, and in fp32 at long
              context a row of a T=1 launch must equal the last row of the
              T=5 launch.
-             ``dtv`` is timed as the wrapper the probe calls: two
-             softmax-stats launches and one |p - q| launch.
-             The row kernels (verify stats, top-k) also run at V+1 (odd,
-             misaligned rows), at the published vocabularies 151936 and
-             262144, on a strided (B, T+1, V) verify view and at k=8, with
-             ties on their slice boundaries; each case prints its plan
-             (cluster size, CTAs), must repeat bit for bit and gives its
-             share of the bytes bound and its time without the flush.
+             The softmax statistics and ``dtv`` (one launch, as the probe
+             calls it) run at R=1 and R=4 rows (an admission's and boot's
+             probe) of V, V+1 and the long vocabularies, and on rows with
+             a row stride of V+1.  The row kernels (verify stats, top-k)
+             also run at V+1 (odd, misaligned rows), at the published
+             vocabularies 151936 and 262144, on a strided (B, T+1, V)
+             verify view and at k=8, with ties on their slice boundaries.  Each row case
+             prints its plan (cluster size, CTAs), must repeat bit for bit
+             and gives its share of the bytes bound and its time without
+             the flush.
              Then the floor (an empty kernel timed the same way, with and
              without the flush) and the host microseconds per call of
-             ``ops.verify_row_stats`` and ``ops.draft_topk``.
+             ``ops.verify_row_stats``, ``ops.draft_topk``, ``ops.dtv`` and
+             ``ops.softmax_stats``.
 4. serving — the full-width Llama chain llama-68m -> tinyllama-1.1b ->
              llama-2-7b in bf16 with random weights, through
              ``ChainRouter.generate`` / ``RouterSession``: on the paged
@@ -43,7 +46,8 @@ Phases, each printing its own lines:
              a tree); on the contiguous state
              (``paged=False``) a fixed-chain linear and a tree run.  Launch
              counters are zeroed just before each run and read just after;
-             every kernel must have launched on this phase.  The
+             every kernel must have launched on this phase (the softmax
+             statistics as pass 1 of the ``dtv`` launches).  The
              fixed-chain runs (paged linear, paged tree, contiguous linear,
              contiguous tree) then run again under ``torch.profiler`` (not
              counted): device time by kernel class and the device busy
@@ -102,8 +106,8 @@ REPLACES = {
 }
 ROUTES = {"paged_attention": ("cuda", attention.SOURCE),
           "verify_stats": ("cuda", verify.SOURCE),
-          "softmax_stats": ("triton", dtv.SOURCE),
-          "dtv": ("triton", dtv.SOURCE),
+          "softmax_stats": ("cuda", dtv.SOURCE),
+          "dtv": ("cuda", dtv.SOURCE),
           "masked_decode_attention": ("cuda", attention.MASKED_SOURCE),
           "masked_tree_attention": ("cuda", attention.MASKED_SOURCE),
           "draft_topk": ("cuda", verify.SOURCE)}
@@ -141,20 +145,15 @@ def phase_device() -> dict:
 # 2. build
 # ---------------------------------------------------------------------------
 def phase_build(device) -> float:
-    """nvcc every CUDA source, one process each, all started together,
-    while the Triton kernels JIT with one tiny launch each (launch counters
-    are zeroed before the serving phase)."""
+    """nvcc every CUDA source, one process each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:
         builds = [pool.submit(attention._launcher),
                   pool.submit(attention.masked_launchers),
                   pool.submit(verify.launchers)]
-        x = torch.randn(2, 4096, device=device)
-        dtv.dtv_triton(x, x)
         for b in builds:
             b.result()
-    torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"[build] kernels built in {secs:.1f} s")
     for src, lines in ptxas_report().items():
@@ -286,11 +285,20 @@ def verify_case(device, dtype, R=20, V=32000, seed=1):
     return x.to(device), cand.to(device)
 
 
-def dtv_case(device, dtype, R=4, V=32000, seed=2):
+def dtv_case(device, dtype, R=4, V=32000, seed=2, stride=None):
+    """Two models' logits rows, b near a; the last of several rows of b is
+    -inf at every fifth column.  ``stride``: a's rows are (R, V) of an
+    (R, stride) array, so its rows start at other 16-byte phases than b's."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     a = torch.randn(R, V, generator=g) * 2.0
     b = a + 0.5 * torch.randn(R, V, generator=g)
-    return a.to(device=device, dtype=dtype), b.to(device=device, dtype=dtype)
+    if R > 1:
+        b[-1, ::5] = -torch.inf
+    to = dict(device=device, dtype=dtype)
+    a, b = a.to(**to), b.to(**to)
+    if stride:
+        a = torch.zeros(R, stride, **to)[:, :V].copy_(a)
+    return a, b
 
 
 def topk_case(device, dtype, R, V=32000, seed=3):
@@ -528,6 +536,13 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
             ok = bool(torch.equal(got[1], want[1])) and err == 0.0
             nbytes = rows.numel() * rows.element_size() + R * k * 8
             nops = k * rows.numel()
+        row_record(name, case, x, R, Vx, fields, ok, repeat, nbytes, nops,
+                   kernel, plain, lib)
+
+    def row_record(name, case, x, R, Vx, fields, ok, repeat, nbytes, nops,
+                   kernel, plain, lib):
+        """A row kernel's record: its launch plan, the bytes bound and,
+        when timed, the bound's share and the time without the flush."""
         C, _ = row_plan(device, R, Vx, x.dtype)
         print(f"[kernels] {name} {case}: plan C={C} ctas={R * C} "
               f"bitwise_repeat={repeat}")
@@ -542,6 +557,37 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
             rec["warm_ms"] = _time_ms(kernel, iters, None)
             print(f"[kernels] {name} {case}: {rec['bound_share']:.1%} of the "
                   f"bound; {rec['warm_ms']:.4f} ms without the L2 flush")
+
+    def pair_case(case, a, b=None):
+        """One softmax-statistics case (``b`` None) or DTV case: the kernel
+        against its plain version and a second launch that must agree bit
+        for bit.  The bound is the function's: each logit read once, the
+        outputs written once."""
+        R, Vx = a.shape
+        elt = a.element_size()
+        if b is None:
+            name = "softmax_stats"
+            kernel = lambda: ops.softmax_stats(a)
+            plain = lambda: dtv.softmax_stats_plain(a)
+            (m, s), again, (m0, s0) = kernel(), kernel(), plain()
+            repeat = bool(torch.equal(m, again[0]) and torch.equal(s, again[1]))
+            rel = float(((s - s0).abs() / s0).max())
+            fields = {"max_abs_err": float((s - s0).abs().max()),
+                      "max_rel_err": rel, "tol": "max exact; sumexp rtol 1e-5"}
+            ok = bool(torch.equal(m, m0)) and rel <= 1e-5
+            nbytes, nops = a.numel() * elt + 2 * R * 4, 4 * a.numel()
+        else:
+            name = "dtv"
+            kernel = lambda: ops.dtv(a, b)
+            plain = lambda: dtv.dtv_plain(a, b)
+            got, again, want = kernel(), kernel(), plain()
+            repeat = bool(torch.equal(got, again))
+            err = float((got - want).abs().max())
+            fields = {"max_abs_err": err, "tol": 1e-5}
+            ok = err <= 1e-5
+            nbytes, nops = 2 * a.numel() * elt + R * 4, 8 * a.numel()
+        row_record(name, case, a, R, Vx, fields, ok, repeat, nbytes, nops,
+                   kernel, plain, None)
 
     first = next(iter(attn_shapes))     # llama-2-7b: fp32 long cases too
     for dt in dtypes:
@@ -579,33 +625,18 @@ def phase_kernels(device, dtypes=(torch.float32, torch.bfloat16),
         x, cand = verify_case(device, dt, R=R, V=V)
         row_case("verify_stats", f"R={R} tree V={V} {_dtname(dt)}", x, cand)
 
-        a, b = dtv_case(device, dt, V=V)
-        ma, sa = ops.softmax_stats(a)
-        ma0, sa0 = dtv.softmax_stats_plain(a)
-        rel = float(((sa - sa0).abs() / sa0).max())
-        R = a.shape[0]
-        bms, by = _bound(a.numel() * a.element_size() + 2 * R * 4,
-                         4 * a.numel(), PEAK_OPS[torch.float32])
-        add({"name": "softmax_stats", "case": f"R={R} V={V} {_dtname(dt)}",
-             "shape": list(a.shape), "dtype": _dtname(dt),
-             "max_abs_err": float((sa - sa0).abs().max()),
-             "max_rel_err": rel, "tol": "max exact; sumexp rtol 1e-5",
-             "pass": bool(torch.equal(ma, ma0)) and rel <= 1e-5,
-             "bound_ms": bms, "bound_by": by},
-            lambda: ops.softmax_stats(a),
-            lambda: dtv.softmax_stats_plain(a), None)
-
-        # the wrapper reads each row twice (stats pass, |p - q| pass); the
-        # bound is the function's: each logit read once, the (R,) written
-        got = ops.dtv(a, b)
-        err = float((got - dtv.dtv_plain(a, b)).abs().max())
-        bms, by = _bound(2 * a.numel() * a.element_size() + R * 4,
-                         8 * a.numel(), PEAK_OPS[torch.float32])
-        add({"name": "dtv", "case": f"R={R} V={V} {_dtname(dt)}",
-             "shape": list(a.shape), "dtype": _dtname(dt),
-             "max_abs_err": err, "tol": 1e-5, "pass": err <= 1e-5,
-             "bound_ms": bms, "bound_by": by},
-            lambda: ops.dtv(a, b), lambda: dtv.dtv_plain(a, b), None)
+        # the SimScore probe: one row at an admission, the batch's four at
+        # boot, over the chain's vocabulary, a row of odd length and the
+        # long vocabularies; then rows of stride V+1 (a's rows start at
+        # other 16-byte phases than b's)
+        for R in (1, 4):
+            for Vx in (V, V + 1, *long_V):
+                a, b = dtv_case(device, dt, R=R, V=Vx)
+                pair_case(f"R={R} V={Vx} {_dtname(dt)}", a)
+                pair_case(f"R={R} V={Vx} {_dtname(dt)}", a, b)
+        a, b = dtv_case(device, dt, V=V, stride=V + 1)
+        pair_case(f"R=4 V={V} row stride {V + 1} {_dtname(dt)}", a)
+        pair_case(f"R=4 V={V} row stride {V + 1} {_dtname(dt)}", a, b)
 
         # every (R, k) the tree runs launch at B = 4: 2x2x1 expands 1, 2
         # and 4 parents per row with k = 2, 2, 1; 2x1x1 and 2x1 expand 1
@@ -639,18 +670,22 @@ def kernel_floor(device, iters=200) -> dict:
 
 def host_cost(device, V=32000, calls=1000, m=ops) -> dict:
     """Median host microseconds per call of ``m.verify_row_stats`` (R=20
-    rows) and ``m.draft_topk`` (R=16, k=2) on fp32 rows of V: ``calls``
-    calls each after 20 of warm-up, a sync only before every 100th call
-    (outside the timing) so the launch queue stays shallow.  ``m`` is a
-    port's ``kernels.ops`` (``tools/host_cost_ab.py`` passes another
+    rows), ``m.draft_topk`` (R=16, k=2), ``m.dtv`` and ``m.softmax_stats``
+    (R=4, the probe's rows at boot) on fp32 rows of V: ``calls`` calls each
+    after 20 of warm-up, a sync only before every 100th call (outside the
+    timing) so the launch queue stays shallow.  ``m`` is a port's
+    ``kernels.ops`` (``tools/host_cost_ab.py`` passes another
     checkout's)."""
     g = torch.Generator().manual_seed(5)
     x = torch.randn(20, V, generator=g).to(device)
     cand = torch.zeros(20, dtype=torch.int32, device=device)
     t = torch.randn(16, V, generator=g).to(device)
+    a, b = x[:4], x[4:8]
     out = {}
     for op, fn in (("verify_row_stats", lambda: m.verify_row_stats(x, cand)),
-                   ("draft_topk", lambda: m.draft_topk(t, 2))):
+                   ("draft_topk", lambda: m.draft_topk(t, 2)),
+                   ("dtv", lambda: m.dtv(a, b)),
+                   ("softmax_stats", lambda: m.softmax_stats(a))):
         for _ in range(20):
             fn()
         us = []
@@ -828,8 +863,8 @@ def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
 
 
 KERNEL_CLASSES = (("attention", ("flash_decode_kernel", "combine_kernel")),
-                  ("row_kernels", ("row_reduce_kernel", "_softmax_stats_body",
-                                   "_dtv_body")),
+                  ("row_kernels", ("row_reduce_kernel", "row_softmax_kernel",
+                                   "row_dtv_kernel")),
                   ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")))
 
 
@@ -1049,7 +1084,9 @@ REPRESENTATIVE = {"paged_attention": "llama-2-7b T=5 bfloat16",
 def kernels_line(records, launches) -> list:
     """One entry per kernel at its representative main-path case (bf16
     attention as served; fp32 logits for the row reductions and the
-    top-k)."""
+    top-k).  ``launches`` counts standalone launches; the softmax
+    statistics also run as pass 1 of every ``dtv`` launch, which its
+    ``in_dtv_launches`` gives."""
     out = []
     for name, case in REPRESENTATIVE.items():
         rec = next(r for r in records
@@ -1061,7 +1098,16 @@ def kernels_line(records, launches) -> list:
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"], "case": case})
+        if name == "softmax_stats":
+            out[-1]["in_dtv_launches"] = launches["dtv"]
     return out
+
+
+def never_launched(launches) -> list:
+    """Kernels that the main path never ran: no launch of their own, and
+    for the softmax statistics no ``dtv`` launch either."""
+    return [k for k, n in launches.items() if n <= 0 and not (
+        k == "softmax_stats" and launches["dtv"] > 0)]
 
 
 def main() -> int:
@@ -1091,7 +1137,7 @@ def main() -> int:
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    missing = [k for k, n in serving["launches"].items() if n <= 0]
+    missing = never_launched(serving["launches"])
     if missing:
         print(f"chip_smoke: FAILED: kernels never launched on the main path: "
               f"{missing}", file=sys.stderr)

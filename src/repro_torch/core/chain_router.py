@@ -58,11 +58,15 @@ def probe_dtv_rows(logits: Dict[str, torch.Tensor]
                    ) -> Dict[Tuple[str, str], np.ndarray]:
     """SimScore probe: per-row DTV (paper Eq. 5) between every unordered
     pair of models' next-token distributions on the same contexts, from
-    their (B, V) logits with ``ops.dtv`` (the DTV kernels on the card).
-    Same keys and values as the reference's ``pairwise_dtv_rows`` over
-    probabilities."""
-    return {(a, b): ops.dtv(logits[a], logits[b]).cpu().numpy()
-            for a, b in itertools.combinations(sorted(logits), 2)}
+    their (B, V) logits with ``ops.dtv`` (one DTV launch per pair on the
+    card), brought to the host in one copy.  Same keys and values as the
+    reference's ``pairwise_dtv_rows`` over probabilities."""
+    pairs = list(itertools.combinations(sorted(logits), 2))
+    if not pairs:
+        return {}
+    rows = torch.stack([ops.dtv(logits[a], logits[b])
+                        for a, b in pairs]).cpu().numpy()
+    return dict(zip(pairs, rows))
 
 
 @dataclasses.dataclass

@@ -1,14 +1,13 @@
 """Build plumbing shared by the hand-written Hopper kernels.
 
-CUDA C++ sources under ``repro_torch/csrc`` are compiled with ``nvcc`` into
-shared libraries with a plain C interface and loaded with ``ctypes`` (no
-PyTorch headers: a build takes seconds, not minutes).  Triton kernels are
-JIT-compiled by Triton itself; their cache is pointed into the same build
-directory so a run writes nothing outside its checkout.
+Every kernel of the port is CUDA C++ under ``repro_torch/csrc``, compiled
+with ``nvcc`` into a shared library with a plain C interface (one per
+``.cu`` source) and loaded with ``ctypes`` (no PyTorch headers: a build
+takes seconds, not minutes).  Builds go to the checkout's ``build/``, so a
+run writes nothing outside its checkout.
 
 Everything here runs at a kernel's first launch, never at import: the CPU
-tests import every module on hosts that have neither ``nvcc`` nor
-``triton``.
+tests import every module on hosts that have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -87,8 +86,3 @@ def load_cuda_library(source_name: str) -> ctypes.CDLL:
         _libs[source_name] = lib
         return lib
 
-
-def use_build_dir_for_triton() -> None:
-    """Keep Triton's compile cache inside the checkout's build directory
-    unless the caller chose one."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

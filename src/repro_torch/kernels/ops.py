@@ -98,12 +98,13 @@ def verify_row_stats(logits: torch.Tensor, cand: torch.Tensor):
 def softmax_stats(logits: torch.Tensor):
     """(R, V) -> (max (R,), sumexp (R,))."""
     if _on_cuda(logits):
-        return _dtv.softmax_stats_triton(logits)
+        return _dtv.softmax_stats_cuda(logits)
     return _dtv.softmax_stats_plain(logits)
 
 
 def dtv(a_logits: torch.Tensor, b_logits: torch.Tensor) -> torch.Tensor:
-    """(R, V) x2 -> (R,) total variation distance (paper Eq. 5)."""
+    """(R, V) x2 -> (R,) total variation distance (paper Eq. 5), one
+    launch on the card."""
     if _on_cuda(a_logits, b_logits):
-        return _dtv.dtv_triton(a_logits, b_logits)
+        return _dtv.dtv_cuda(a_logits, b_logits)
     return _dtv.dtv_plain(a_logits, b_logits)

@@ -47,27 +47,34 @@ MAX_CLUSTER = 8            # CTAs per row: the portable cluster size
 MIN_SLICE_BYTES = 4096     # a CTA's slice is not cut below this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of each ``csrc/row_kernels.cu`` entry point: pointers,
+# then R, V (and T1), 64-bit strides, the plan's ints and the stream
+SIGNATURES = {
+    "row_stats_launch": (_P,) * 6 + (_I,) * 3 + (_Q,) * 2 + (_I,) * 3 + (_P,),
+    "row_topk_launch": (_P,) * 3 + (_I,) * 3 + (_Q,) * 2 + (_I,) * 4 + (_P,),
+    "row_softmax_stats_launch": (_P,) * 3 + (_I,) * 2 + (_Q,) + (_I,) * 3
+    + (_P,),
+    "row_dtv_launch": (_P,) * 3 + (_I,) * 2 + (_Q,) * 2 + (_I,) * 3 + (_P,),
+}
+
 _fns: dict = {}
 
 
-def _launcher(symbol: str, n_ptrs: int, n_ints: int):
-    """ctypes binding of a ``row_kernels.cu`` launcher: ``n_ptrs``
-    pointers, then R, V, T1, the two 64-bit strides, ``n_ints`` more ints
-    and the stream."""
+def launcher(symbol: str):
+    """ctypes binding of a ``row_kernels.cu`` entry point (built at the
+    first call)."""
     if symbol not in _fns:
         fn = getattr(load_cuda_library("row_kernels.cu"), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
+        fn.argtypes = SIGNATURES[symbol]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return _fns[symbol]
 
 
 def launchers():
-    """(statistics launcher, top-k launcher) of ``csrc/row_kernels.cu``."""
-    return (_launcher("row_stats_launch", 6, 3),
-            _launcher("row_topk_launch", 3, 4))
+    """Every entry point of ``csrc/row_kernels.cu``, bound."""
+    return tuple(launcher(symbol) for symbol in SIGNATURES)
 
 
 def row_split_plan(R: int, V: int, elt_bytes: int, n_sm: int) -> tuple:
@@ -117,7 +124,7 @@ def topk_plain(logits: torch.Tensor, k: int):
 
 
 
-def _rows(logits: torch.Tensor) -> tuple:
+def rows_of(logits: torch.Tensor) -> tuple:
     """``(R, V, T1, sb, st)`` of (R, V) rows or of a (B, T1, V) view: row
     r starts at element (r // T1)·sb + (r % T1)·st; unit column stride."""
     if logits.dim() not in (2, 3) or logits.stride(-1) != 1:
@@ -142,7 +149,7 @@ def _plan(R: int, V: int, elt_bytes: int, device: int) -> tuple:
                           sm_count(torch.device("cuda", device)))
 
 
-def _launch_args(logits: torch.Tensor, R: int, V: int) -> tuple:
+def launch_args(logits: torch.Tensor, R: int, V: int) -> tuple:
     """(C, per, dtype code, stream) of a launch: the plan and torch's
     current raw stream on the logits' device (the public
     ``torch.cuda.current_stream`` costs ~5 µs of host time per call)."""
@@ -157,7 +164,7 @@ def verify_stats_cuda(logits: torch.Tensor, cand: torch.Tensor):
     (R, V), or a (B, T, V) view with any batch and row strides; cand of
     the rows' shape -> (argmax int32, max f32, sumexp f32, cand_logit f32),
     each of the rows' shape (``verify_stats_plain`` on the rows)."""
-    R, V, T1, sb, st = _rows(logits)
+    R, V, T1, sb, st = rows_of(logits)
     shape = logits.shape[:-1]
     if cand.shape != shape or cand.device != logits.device:
         raise ValueError(f"cand must be {tuple(shape)} on {logits.device}, "
@@ -169,9 +176,10 @@ def verify_stats_cuda(logits: torch.Tensor, cand: torch.Tensor):
     am, m, s, cl = torch.empty((4, *shape), dtype=torch.float32,
                                device=logits.device).unbind(0)
     am = am.view(torch.int32)
-    err = _launcher("row_stats_launch", 6, 3)(logits.data_ptr(), cand.data_ptr(), am.data_ptr(),
-                         m.data_ptr(), s.data_ptr(), cl.data_ptr(), R, V, T1,
-                         sb, st, *_launch_args(logits, R, V))
+    err = launcher("row_stats_launch")(
+        logits.data_ptr(), cand.data_ptr(), am.data_ptr(), m.data_ptr(),
+        s.data_ptr(), cl.data_ptr(), R, V, T1, sb, st,
+        *launch_args(logits, R, V))
     if err != 0:
         raise RuntimeError(f"row_stats_launch failed: cudaError {err}")
     COUNTER.count += 1
@@ -184,14 +192,15 @@ def topk_cuda(logits: torch.Tensor, k: int):
     if logits.dim() != 2:
         raise ValueError(f"top-k takes (R, V) logits, got "
                          f"{tuple(logits.shape)}")
-    R, V, T1, sb, st = _rows(logits)
+    R, V, T1, sb, st = rows_of(logits)
     if not 1 <= k <= min(MAX_TOPK, V):
         raise ValueError(f"top-k takes 1 <= k <= {min(MAX_TOPK, V)}, got {k}")
     dev = logits.device
     vals = torch.empty((R, k), dtype=torch.float32, device=dev)
     idx = torch.empty((R, k), dtype=torch.int32, device=dev)
-    err = _launcher("row_topk_launch", 3, 4)(logits.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                         R, V, T1, sb, st, k, *_launch_args(logits, R, V))
+    err = launcher("row_topk_launch")(
+        logits.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, V, T1, sb, st,
+        k, *launch_args(logits, R, V))
     if err != 0:
         raise RuntimeError(f"row_topk_launch failed: cudaError {err}")
     TOPK_COUNTER.count += 1

@@ -62,6 +62,44 @@ def test_kernel_phase_rehearsal():
         for R, V, k in ((16, 3000, 8), (16, 3001, 2), (16, 6000, 2),
                         (16, 8192, 2)):
             assert ("draft_topk", f"R={R} V={V} k={k} {dt}") in cases
+        for name in ("softmax_stats", "dtv"):
+            for R in (1, 4):
+                for V in (3000, 3001, 6000, 8192):
+                    assert (name, f"R={R} V={V} {dt}") in cases
+            assert (name, f"R=4 V=3000 row stride 3001 {dt}") in cases
+    pairs = [r for r in recs if r["name"] in ("softmax_stats", "dtv")]
+    assert len(pairs) == 36
+    assert all(r["bitwise_repeat"] and r["cluster"] in (1, 2, 4, 8)
+               for r in pairs)
+
+
+def test_kernels_line_counts_the_softmax_pass_inside_dtv_launches(
+        monkeypatch):
+    """Off the card the line carries no times, but every key of it; the
+    softmax statistics' ``in_dtv_launches`` are the ``dtv`` launches, and
+    only they keep its kernel off the never-launched list.  The rehearsal
+    runs the representative cases at V=3000 with tiny attention heads."""
+    monkeypatch.setattr(chip_smoke, "REPRESENTATIVE", {
+        k: c.replace("V=32000", "V=3000")
+        for k, c in chip_smoke.REPRESENTATIVE.items()})
+    recs = chip_smoke.phase_kernels(
+        "cpu", attn_shapes={"llama-2-7b": (4, 2, 16)}, V=3000, timed=False,
+        long_S=96, long_V=(6000,))
+    launches = {k: 3 for k in ops.launch_counts()}
+    launches.update(softmax_stats=0, dtv=5)
+    line = chip_smoke.kernels_line(recs, launches)
+    assert [e["name"] for e in line] == list(chip_smoke.REPRESENTATIVE)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(e) for e in line)
+    assert all(e["route"] == "cuda" for e in line)
+    stats = next(e for e in line if e["name"] == "softmax_stats")
+    assert stats["launches"] == 0 and stats["in_dtv_launches"] == 5
+    assert chip_smoke.never_launched(launches) == []
+    assert chip_smoke.never_launched({**launches, "dtv": 0}) == [
+        "softmax_stats", "dtv"]
+    assert chip_smoke.never_launched({**launches, "draft_topk": 0}) == [
+        "draft_topk"]
 
 
 def test_floor_and_host_cost_rehearsal():
@@ -78,7 +116,8 @@ def test_floor_and_host_cost_rehearsal():
     assert other is not ops and other.__name__.startswith("other_")
     for m in (ops, other):
         host = chip_smoke.host_cost("cpu", V=3000, calls=4, m=m)
-        assert set(host) == {"verify_row_stats", "draft_topk"}
+        assert set(host) == {"verify_row_stats", "draft_topk", "dtv",
+                             "softmax_stats"}
         assert all(v > 0 for v in host.values())
 
 

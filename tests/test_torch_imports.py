@@ -1,6 +1,6 @@
 """Import hygiene of the PyTorch port: ``src/repro_torch``,
-``chip_smoke.py`` and ``tools/host_cost_ab.py`` import neither JAX nor the reference package, import
-Triton only inside the functions that launch its kernels, and name no
+``chip_smoke.py`` and ``tools/host_cost_ab.py`` import neither JAX nor the
+reference package, nor Triton (every kernel is CUDA C++), and name no
 file ``ref.py`` under ``kernels/`` (that name is the reference's oracle
 table, which the speclint meta rule looks up by file name)."""
 import ast
@@ -42,6 +42,15 @@ def test_triton_is_imported_only_at_launch(path):
            if isinstance(node, (ast.Import, ast.ImportFrom))
            for name, _ in _imports(ast.Module(body=[node], type_ignores=[]))]
     assert not [n for n in top if n.split(".")[0] == "triton"]
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_triton_is_left(path):
+    """Not at the top, not inside a function: no kernel is Triton."""
+    bad = [name for name, _ in _imports(ast.parse(path.read_text()))
+           if name.split(".")[0] == "triton"]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_no_ref_py_under_port_kernels():

@@ -215,7 +215,7 @@ def test_cuda_row_kernels_match_plain():
     assert torch.equal(am, am0) and torch.equal(m, m0)
     torch.testing.assert_close(s, s0, rtol=1e-5, atol=0)
     torch.testing.assert_close(cl, cl0, rtol=1e-5, atol=0)
-    got = dtv.dtv_triton(xt[:4], xt[4:8])
+    got = dtv.dtv_cuda(xt[:4], xt[4:8])
     torch.testing.assert_close(got, dtv.dtv_plain(xt[:4], xt[4:8]),
                                rtol=0, atol=1e-5)
 

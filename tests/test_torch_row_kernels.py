@@ -1,9 +1,10 @@
-"""The row kernels of the port (verify row statistics, tree-draft top-k):
-the row-split plan, a plain-PyTorch emulation of the kernels' slice and
-merge rule against the JAX wrapper (Pallas in interpret mode on the CPU)
-and the jnp oracle on the same numpy inputs, the strided (B, T, V) input
-of ``ops.verify_row_stats``, and, on a card only, the CUDA kernels against
-their plain versions at the repository's vocabulary widths."""
+"""The row kernels of the port (verify row statistics, tree-draft top-k,
+softmax statistics, DTV): the row-split plan, a plain-PyTorch emulation of
+the kernels' slice and merge rule against the JAX wrappers (Pallas in
+interpret mode on the CPU) and the jnp oracles on the same numpy inputs,
+the strided (B, T, V) input of ``ops.verify_row_stats``, and, on a card
+only, the CUDA kernels against their plain versions at the repository's
+vocabulary widths."""
 import inspect
 
 import jax.numpy as jnp
@@ -11,15 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import dtv as jdtv
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.core import verification as tver
 from repro_torch import device
-from repro_torch.kernels import ops, verify
+from repro_torch.kernels import dtv, ops, verify
 
 torch.set_num_threads(2)
 
 THREADS, WARPS = 256, 8     # csrc/row_reduce.cuh kThreads, kWarps
+BATCH = 8                   # kBatch: 16-byte units per thread per batch
 NONE = 2 ** 31 - 1          # index of an empty slot (kNone)
 
 
@@ -111,6 +114,129 @@ def _xor_tree(m, s, lv, li, K):
     return mx[..., 0], t[..., 0], v, i
 
 
+def _thread_lists(x, lo, hi, phase=0):
+    """Columns [lo, hi) of fp32 rows x that start ``phase`` elements past a
+    16-byte boundary, dealt to a CTA's 256 threads as the kernels deal
+    them: the head (before the first 16-byte boundary) and the tail (past
+    the last) one column per thread, the 16-byte units between (4 columns)
+    to the threads in turn.  Returns (values, indices), each (R, 256,
+    width): every thread's columns in increasing order, padded with -inf
+    and NONE."""
+    a0 = min(hi, lo + (4 - phase) % 4)
+    n_units = (hi - a0) // 4
+    a1 = a0 + 4 * n_units
+    t = torch.arange(THREADS)
+    head = (lo + t < a0).long()                 # a head column first
+    units = torch.clamp((n_units - t + THREADS - 1) // THREADS, min=0)
+    cols = torch.arange(lo, hi)
+    unit = (cols - a0) // 4
+    body = (cols >= a0) & (cols < a1)
+    thread = torch.where(cols < a0, cols - lo,
+                         torch.where(body, unit % THREADS, cols - a1))
+    slot = torch.where(cols < a0, 0, head[thread] + torch.where(
+        body, (unit // THREADS) * 4 + (cols - a0) % 4, 4 * units[thread]))
+    width = 4 * -(-n_units // THREADS) + 2
+    tv = torch.full((x.shape[0], THREADS, width), -torch.inf)
+    ti = torch.full((x.shape[0], THREADS, width), NONE)
+    tv[:, thread, slot] = x[:, lo:hi]
+    ti[:, thread, slot] = cols.to(ti.dtype)
+    return tv, ti
+
+
+def _column_lists(x, lo, hi):
+    """Columns [lo, hi) of rows x column by column: column lo + t + 256 i
+    to thread t (DTV's pass 2 where a's and b's phases differ)."""
+    cols = torch.arange(lo, hi)
+    width = -(-(hi - lo) // THREADS)
+    tv = torch.full((x.shape[0], THREADS, width), -torch.inf)
+    tv[:, (cols - lo) % THREADS, (cols - lo) // THREADS] = x[:, lo:hi]
+    return tv
+
+
+def _thread_stat(tv):
+    """Each thread's (max, sumexp) over its columns (the last axis); the
+    -inf padding adds nothing."""
+    m = tv.max(dim=-1).values
+    live = m > -torch.inf
+    return m, torch.where(
+        live, torch.exp(tv - torch.where(live, m, 0)[..., None]).sum(-1), 0)
+
+
+def _xor_sum(t):
+    """A warp's 32 values (last axis) added in the kernels' xor tree."""
+    for off in (16, 8, 4, 2, 1):
+        t = t + t[..., torch.arange(32) ^ off]
+    return t[..., 0]
+
+
+def _warp_stat(m, s):
+    """A warp's 32 (max, sumexp) partials (last axis): each sum rescaled
+    to the warp max, then the xor tree."""
+    mx = m.max(dim=-1, keepdim=True).values
+    live = mx > -torch.inf
+    return mx[..., 0], _xor_sum(
+        torch.where(live, s * torch.exp(m - torch.where(live, mx, 0)), 0))
+
+
+def _cluster_stat(parts):
+    """The cluster's warp partials [(m, s)] in (rank, warp) order, padded
+    to 64: lane l merges partials 2l and 2l + 1, then the warp."""
+    R = parts[0][0].shape
+    parts = parts + [(torch.full(R, -torch.inf), torch.zeros(R))] * (
+        64 - len(parts))
+    lanes = [_merge_sum(*parts[2 * l], *parts[2 * l + 1]) for l in range(32)]
+    return _warp_stat(torch.stack([m for m, _ in lanes], -1),
+                      torch.stack([s for _, s in lanes], -1))
+
+
+def _slice_stats(row, C, per, phase):
+    """Pass 1 of one row (1, V): per slice the thread lists and the warp
+    partials, then the row's (max, sumexp)."""
+    lists, parts = [], []
+    for lo, hi in verify.slice_ranges(row.shape[1], C, per):
+        tv, _ = _thread_lists(row, lo, hi, phase)
+        wm, ws = _warp_stat(*(t.reshape(1, WARPS, 32)
+                              for t in _thread_stat(tv)))
+        parts += [(wm[:, w], ws[:, w]) for w in range(WARPS)]
+        lists.append(tv)
+    return lists, _cluster_stat(parts)
+
+
+def emulate_softmax_stats(x, C, per, phases):
+    """Kernel 3's rule on (R, V) fp32 rows whose starts lie ``phases[r]``
+    elements past a 16-byte boundary: per-thread (max, sumexp), a xor tree
+    per warp, the C * 8 warp partials merged in (rank, warp) order."""
+    out = [_slice_stats(x[r:r + 1], C, per, phases[r])[1]
+           for r in range(x.shape[0])]
+    return (torch.cat([m for m, _ in out]), torch.cat([s for _, s in out]))
+
+
+def emulate_dtv(a, b, C, per, phases_a, phases_b):
+    """Kernel 4's rule: pass 1 (kernel 3's) on both rows and its merge;
+    pass 2 sums |softmax(a) - softmax(b)| per thread over the units of a
+    where both rows share a phase, else column by column, then a xor tree
+    per warp, the C * 8 warp sums in (rank, warp) order, two per lane and
+    a xor tree; 0.5 times that."""
+    out = []
+    for r in range(a.shape[0]):
+        la, (ma, sa) = _slice_stats(a[r:r + 1], C, per, phases_a[r])
+        lb, (mb, sb) = _slice_stats(b[r:r + 1], C, per, phases_b[r])
+        sums = []
+        for (lo, hi), ta, tb in zip(verify.slice_ranges(a.shape[1], C, per),
+                                    la, lb):
+            if phases_a[r] != phases_b[r]:
+                ta, tb = (_column_lists(x[r:r + 1], lo, hi) for x in (a, b))
+            d = (torch.exp(ta - ma[:, None, None]) / sa[:, None, None]
+                 - torch.exp(tb - mb[:, None, None]) / sb[:, None, None])
+            w = _xor_sum(d.abs().sum(-1).reshape(1, WARPS, 32))
+            sums += [w[:, i] for i in range(WARPS)]
+        sums += [torch.zeros(1)] * (64 - len(sums))
+        lanes = torch.stack([sums[2 * l] + sums[2 * l + 1]
+                             for l in range(32)], -1)
+        out.append(0.5 * _xor_sum(lanes))
+    return torch.cat(out)
+
+
 def emulate_rows(x, K, C, per):
     """The kernels' rule on (R, V) fp32 rows: C slices of ``per``
     columns (one CTA each); in each, 16-byte units (4 columns) dealt to
@@ -120,29 +246,11 @@ def emulate_rows(x, K, C, per):
     then a xor tree.  Returns the K best (values, indices) and (max,
     sumexp) per row."""
     R, V = x.shape
-    cols = torch.arange(V)
     parts = []                                      # (m, s, v, i) per warp
     for lo, hi in verify.slice_ranges(V, C, per):
-        # thread of each column: rows start 16-byte aligned here, so a
-        # slice has no head and its tail of < 4 columns goes to threads 0..
-        n_units = (hi - lo) // 4
-        unit = (cols - lo) // 4
-        thread = torch.where(unit < n_units, unit % THREADS,
-                             cols - lo - 4 * n_units)
-        inside = (cols >= lo) & (cols < hi)
-        width = 4 * -(-n_units // THREADS) + 1
-        tv = torch.full((R, THREADS, width), -torch.inf)
-        ti = torch.full((R, THREADS, width), NONE)
-        fill = torch.zeros(THREADS, dtype=torch.long)
-        for c in cols[inside].tolist():
-            t = int(thread[c])
-            tv[:, t, fill[t]] = x[:, c]
-            ti[:, t, fill[t]] = c
-            fill[t] += 1
-        m = tv.max(dim=-1).values
-        live = m > -torch.inf
-        s = torch.where(live, torch.exp(tv - torch.where(live, m, 0)[..., None])
-                        .sum(-1), 0)
+        # rows start 16-byte aligned here, so a slice has no head
+        tv, ti = _thread_lists(x, lo, hi)
+        m, s = _thread_stat(tv)
         lv, li = _topk_lists(tv, ti, K)                      # (R, 256, K)
         wm, ws, wv, wi = _xor_tree(m.reshape(R, WARPS, 32),
                                    s.reshape(R, WARPS, 32),
@@ -225,6 +333,88 @@ def test_emulated_topk_matches_jax_kernel_and_oracle(C, k):
     if k == 8:                                 # -inf entries are selected
         assert np.isneginf(v[6, 5:].numpy()).all()
         assert (i[6].numpy() < x.shape[1]).all()
+
+
+def pair_rows(seed, V, R=6):
+    """Two models' logits rows, b near a, with -inf entries: in both rows
+    at the same columns (row 2), in a alone (row 3), and nearly all of a
+    row (row 4 holds only -inf past column 5)."""
+    rng = np.random.default_rng(seed)
+    a = (rng.normal(size=(R, V)) * 2).astype(np.float32)
+    b = (a + 0.5 * rng.normal(size=a.shape)).astype(np.float32)
+    a[2, ::7] = b[2, ::7] = -np.inf
+    a[3, 1::3] = -np.inf
+    a[4, 5:] = -np.inf
+    return a, b
+
+
+def _fp32_per(V, C):
+    return -(-V // (C * 4)) * 4                  # row_split_plan's fp32 per
+
+
+@pytest.mark.parametrize("V", [3000, 3001])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_emulated_softmax_stats_match_jax_kernel_and_oracle(C, V):
+    """Kernel 3's split and merge against the Pallas ``softmax_stats``
+    (interpret mode, on caller-padded tiles) and ``ref.softmax_stats_ref``;
+    at V=3001 the rows of a contiguous array start at every 16-byte phase,
+    so slices have heads and tails."""
+    x, _ = pair_rows(30 + C, V)
+    R = x.shape[0]
+    m, s = emulate_softmax_stats(_t(x), C, _fp32_per(V, C),
+                                 [(r * V) % 4 for r in range(R)])
+    pad = np.full((8, -(-V // jdtv.BLK_V) * jdtv.BLK_V), jdtv.NEG, np.float32)
+    pad[:R, :V] = x
+    km, ks = (np.asarray(w)[:R, 0] for w in jdtv.softmax_stats(
+        jnp.asarray(pad)))
+    for wm, ws in ((km, ks), ref.softmax_stats_ref(jnp.asarray(x)),
+                   dtv.softmax_stats_plain(_t(x))):
+        np.testing.assert_array_equal(m.numpy(), np.asarray(wm))
+        np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=1e-5)
+
+
+@pytest.mark.parametrize("V,b_stride", [(3000, 3000), (3001, 3001),
+                                        (3000, 3001), (9000, 9000)])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_emulated_dtv_matches_jax_kernel_and_oracle(C, V, b_stride):
+    """Kernel 4's two passes and two merges against ``ops.dtv`` of the JAX
+    package (Pallas in interpret mode) and ``ref.dtv_ref``.  With b's rows
+    ``b_stride`` apart, a's and b's rows start at different 16-byte phases
+    and pass 2 goes column by column; ``ops.dtv`` reads such a view in
+    place.  At V=9000 and C=1 a slice is more than one batch of units per
+    thread, where the kernel's pass 2 re-reads the slices."""
+    a, b = pair_rows(40 + C, V)
+    R = a.shape[0]
+    got = emulate_dtv(_t(a), _t(b), C, _fp32_per(V, C),
+                      [(r * V) % 4 for r in range(R)],
+                      [(r * b_stride) % 4 for r in range(R)])
+    want = (jops.dtv(jnp.asarray(a), jnp.asarray(b)),
+            ref.dtv_ref(jnp.asarray(a), jnp.asarray(b)))
+    for w in want:
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5)
+    wide = torch.zeros(R, b_stride)
+    view = wide[:, :V]
+    view.copy_(_t(b))
+    assert torch.equal(ops.dtv(_t(a), view), dtv.dtv_plain(_t(a), _t(b)))
+    assert ops.launch_counts()["dtv"] == 0                 # CPU: no launch
+
+
+def test_pair_kernel_wrappers_check_their_operands():
+    """The checks run before any launch: fp16 rows (no model of the port
+    runs fp16) and mismatched or non-matrix operands raise."""
+    x = torch.randn(4, 64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dtv.dtv_cuda(x.half(), x.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dtv.softmax_stats_cuda(x.half())
+    with pytest.raises(ValueError, match="differ"):
+        dtv.dtv_cuda(x, x[:3])
+    with pytest.raises(ValueError, match="differ"):
+        dtv.dtv_cuda(x, x.bfloat16())
+    with pytest.raises(ValueError, match=r"\(R, V\)"):
+        dtv.softmax_stats_cuda(x.reshape(2, 2, 64))
+    with pytest.raises(ValueError, match="unit column stride"):
+        dtv.dtv_cuda(x.t(), x.t())
 
 
 # ---------------------------------------------------------------------------
@@ -370,3 +560,133 @@ def test_cuda_row_kernels_at_every_cluster_size(C, V, dtype, monkeypatch):
     x = gpu_rows(R, V, dtype, seed=11, n_sm=n_sm)
     _check_stats(x, _gpu_cand(x))
     _check_topk(x, (1, 2, 8))
+
+
+# ---------------------------------------------------------------------------
+# on a card: softmax statistics and DTV against their plain versions
+# ---------------------------------------------------------------------------
+PAIR_SHAPES = [(R, V) for R in (1, 4) for V in (32000, 32001, 151936, 262144)]
+
+
+def gpu_pairs(R, V, dtype, seed=13, stride=None):
+    """Two models' logits rows on the card, b near a, with -inf entries in
+    b alone, in both at the same columns and, in the last of several rows
+    of a, everywhere past its first three entries.  ``stride``: a's rows
+    lie ``stride`` apart."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(R, V, generator=g) * 2.0
+    b = a + 0.5 * torch.randn(R, V, generator=g)
+    b[:, ::9] = -torch.inf
+    a[:, 5::11] = b[:, 5::11] = -torch.inf
+    if R > 1:
+        a[R - 1, 3:] = -torch.inf
+    a, b = a.to(dtype).cuda(), b.to(dtype).cuda()
+    if stride:
+        a = torch.zeros(R, stride, dtype=dtype, device="cuda")[:, :V].copy_(a)
+    return a, b
+
+
+def _check_pair(a, b):
+    """Both kernels against their plain versions (max exact, sumexp rtol
+    1e-5, DTV atol 1e-5) and a second launch of each bit for bit."""
+    m, s = dtv.softmax_stats_cuda(a)
+    again = dtv.softmax_stats_cuda(a)
+    m0, s0 = dtv.softmax_stats_plain(a)
+    d = dtv.dtv_cuda(a, b)
+    d_again = dtv.dtv_cuda(a, b)
+    d0 = dtv.dtv_plain(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(m, m0)
+    torch.testing.assert_close(s, s0, rtol=1e-5, atol=0)
+    torch.testing.assert_close(d, d0, rtol=0, atol=1e-5)
+    assert torch.equal(m, again[0]) and torch.equal(s, again[1])
+    assert torch.equal(d, d_again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,V", PAIR_SHAPES)
+def test_cuda_softmax_stats_and_dtv_match_plain(R, V, dtype):
+    _cuda_or_skip()
+    _check_pair(*gpu_pairs(R, V, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [32000, 32001])
+def test_cuda_pair_kernels_read_rows_of_other_strides(V, dtype):
+    """a's rows V+1 apart (a strided view whose rows start at other
+    16-byte phases than b's, so DTV's pass 2 goes column by column on
+    those rows), and both as strided views of one stride."""
+    _cuda_or_skip()
+    a, b = gpu_pairs(4, V, dtype, stride=V + 1)
+    _check_pair(a, b)
+    wide = torch.zeros(4, V + 1, dtype=dtype, device="cuda")[:, :V]
+    _check_pair(a, wide.copy_(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [32000, 32001])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_cuda_pair_kernels_at_every_cluster_size(C, V, dtype, monkeypatch):
+    """Each cluster size the plan can pick, forced through the SM count
+    the plan is given, at the probe's four rows."""
+    _cuda_or_skip()
+    R, n_sm = 4, 4 * C
+    elt = torch.tensor([], dtype=dtype).element_size()
+    assert verify.row_split_plan(R, V, elt, n_sm)[0] == C
+    monkeypatch.setattr(verify, "_plan", lambda R_, V_, elt_, dev:
+                        verify.row_split_plan(R_, V_, elt_, n_sm))
+    _check_pair(*gpu_pairs(R, V, dtype, seed=17))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,dtype,in_registers", [
+    (65536, torch.float32, True), (65540, torch.float32, False),
+    (262144, torch.float32, False), (131072, torch.bfloat16, True),
+    (151936, torch.bfloat16, False)])
+def test_cuda_dtv_rereads_slices_longer_than_one_batch(V, dtype,
+                                                       in_registers):
+    """DTV's pass 2 takes a CTA's slices from registers while they are one
+    batch of units per thread, and re-reads them past that: both sides of
+    the boundary (fp32 V = 65536 at C = 8 is 2048 units a CTA) and the
+    long vocabularies, against the plain version and bit for bit on a
+    repeat, also with a's rows at another 16-byte phase."""
+    _cuda_or_skip()
+    a, b = gpu_pairs(4, V, dtype)
+    _, per, _, _ = verify.launch_args(a, 4, V)
+    assert (per * a.element_size() // 16 <= BATCH * THREADS) == in_registers
+    _check_pair(a, b)
+    _check_pair(*gpu_pairs(4, V, dtype, stride=V + 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [32000, 32001])
+def test_cuda_softmax_stats_are_the_verify_statistics(V, dtype):
+    """Kernel 3 is the verify statistics' reduction without the argmax and
+    the candidate: on the same rows (and so the same plan) its max and
+    sumexp are the same bits."""
+    _cuda_or_skip()
+    x = gpu_rows(20, V, dtype, seed=19)
+    m, s = dtv.softmax_stats_cuda(x)
+    _, vm, vs, _ = verify.verify_stats_cuda(x, _gpu_cand(x))
+    torch.cuda.synchronize()
+    assert torch.equal(m, vm) and torch.equal(s, vs)
+
+
+@pytest.mark.gpu
+def test_cuda_pair_kernels_count_one_launch_each():
+    """``ops.dtv`` is one launch of the DTV kernel, ``ops.softmax_stats``
+    one launch of its own; fp16 rows raise."""
+    _cuda_or_skip()
+    a, b = gpu_pairs(4, 32000, torch.float32)
+    ops.reset_launch_counts()
+    ops.dtv(a, b)
+    ops.softmax_stats(a)
+    counts = ops.launch_counts()
+    assert counts["dtv"] == 1 and counts["softmax_stats"] == 1
+    assert sum(counts.values()) == 2
+    with pytest.raises(TypeError):
+        ops.dtv(a.half(), b.half())
