@@ -39,28 +39,39 @@ Phases, each printing its own lines:
              ``ops.softmax_stats``.
 4. serving — the full-width Llama chain llama-68m -> tinyllama-1.1b ->
              llama-2-7b in bf16 with random weights, through
-             ``ChainRouter.generate`` / ``RouterSession``: on the paged
-             state adaptive linear, fixed chain (window 4), a session with
-             a mid-flight admission, a fixed-chain token tree (2x2x1) and
-             adaptive trees (2x1, 2x1x1, 2x2x1; the scheduler must pick
-             a tree); on the contiguous state
-             (``paged=False``) a fixed-chain linear and a tree run.  Launch
-             counters are zeroed just before each run and read just after;
+             ``ChainRouter.generate`` / ``RouterSession`` on the fused
+             cycle (the default: one replayed CUDA graph per group): on
+             the paged state adaptive linear, fixed chain (window 4), a
+             session with a mid-flight admission, a fixed-chain token tree
+             (2x2x1) and adaptive trees (2x1, 2x1x1, 2x2x1; the scheduler
+             must pick a tree); on the contiguous state (``paged=False``)
+             a fixed-chain linear and a tree run; and the per-op twins
+             (``fused=False``) of the paged fixed-chain and tree runs.
+             Launch counters are zeroed just before each run and read just
+             after (a replay adds the launches its capture recorded);
              every kernel must have launched on this phase (the softmax
-             statistics as pass 1 of the ``dtv`` launches).  The
-             fixed-chain runs (paged linear, paged tree, contiguous linear,
-             contiguous tree) then run again under ``torch.profiler`` (not
-             counted): device time by kernel class and the device busy
-             share, the source of PERF.md's "Where the time goes".
-5. output  — the same chain in fp32 (TF32 off): the speculative greedy
-             streams of the paged linear, paged tree, contiguous linear and
-             contiguous tree paths must equal target-only greedy, or
-             diverge only where the target's top-2 logit gap is below 1e-3.
-             So must two paths through a twin of the target (its weights
-             under another name), whose drafts are accepted: a paged 2x2x1
-             tree, and a contiguous session of tree and linear slots with
-             a mid-flight admission and rows so short that the capacity
-             guard defragments.  Both must keep drafts.
+             statistics as pass 1 of the ``dtv`` launches), and every
+             fused run must have run a group fused.  Each run prints a
+             ``[fused]`` line: groups fused and per-op (by reason), host
+             syncs per cycle, the median cycle wall, graph captures,
+             re-stages and capture seconds.  One more fixed-chain and one
+             tree session each run a fused group under
+             ``torch.cuda.set_sync_debug_mode("error")``: only the
+             summary's wait may synchronise.  The paged fixed-chain and
+             tree runs, fused and per-op, and the contiguous runs then run
+             again under ``torch.profiler`` (not counted): device time by
+             kernel class and the device busy share, the source of
+             PERF.md's "Where the time goes".
+5. output  — the same chain in fp32 (TF32 off), fused and per-op: the
+             speculative greedy streams of the paged linear, paged tree,
+             contiguous linear and contiguous tree paths must equal
+             target-only greedy, or diverge only where the target's top-2
+             logit gap is below 1e-3.  So must two paths through a twin of
+             the target (its weights under another name), whose drafts
+             are accepted: a paged 2x2x1 tree, and a contiguous session of
+             tree and linear slots with a mid-flight admission and rows so
+             short that the capacity guard defragments.  Both must keep
+             drafts.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  A failed phase exits non-zero before
@@ -766,15 +777,90 @@ def serving_runs(names) -> dict:
                                     paged=False)}
 
 
+# runs that also run per-op (``fused=False``), as "<label>_per_op"
+PER_OP_TWINS = ("fixed_chain", "paged_tree")
 # kernels that a run must have launched (phase 4 checks them per run)
-RUN_NEEDS = {"paged_tree": ("draft_topk", "paged_attention"),
+RUN_NEEDS = {"paged_tree": ("draft_topk", "paged_attention",
+                            "verify_stats"),
+             "fixed_chain": ("paged_attention", "verify_stats"),
              "adaptive_tree": ("draft_topk",),
              "contiguous_linear": ("masked_decode_attention",
                                    "masked_tree_attention"),
              "contiguous_tree": ("draft_topk", "masked_decode_attention",
                                  "masked_tree_attention")}
-PROFILED = ("fixed_chain", "paged_tree", "contiguous_linear",
-            "contiguous_tree")
+PROFILED = ("fixed_chain", "fixed_chain_per_op", "paged_tree",
+            "paged_tree_per_op", "contiguous_linear", "contiguous_tree")
+
+
+def fused_stats(router, cycle_wall_s) -> dict:
+    """The ``[fused]`` line of one run: groups fused and per-op (by
+    reason), host syncs per cycle outside admission (prefill and insert),
+    the median cycle wall, graph captures, re-stages and capture
+    seconds."""
+    c = router.profiler.counters
+    admission = sum(v for k, v in c.items()
+                    if k.endswith(".calls") and k.split(".")[0] in
+                    ("prefill", "insert"))
+    cycles = len(cycle_wall_s)
+    return {"groups_fused": int(c["groups.fused"]),
+            "groups_per_op": int(c["groups.per_op"]),
+            "per_op_reasons": {k.split(".")[-1]: int(v) for k, v in c.items()
+                               if k.startswith("groups.per_op.")},
+            "host_syncs_per_cycle": (c["host_sync"] - admission)
+            / max(cycles, 1),
+            "median_cycle_wall_s": float(np.median(cycle_wall_s))
+            if cycles else None,
+            "graph_captures": int(c["graph_capture"]),
+            "graph_restages": int(c["graph_restage"]),
+            "capture_s": float(c["graph_capture_s"])}
+
+
+def _print_fused(label, st) -> None:
+    print(f"[fused] {label}: groups fused {st['groups_fused']}, per-op "
+          f"{st['groups_per_op']} {st['per_op_reasons']}; host syncs per "
+          f"cycle {st['host_syncs_per_cycle']:.2f}; median cycle wall "
+          f"{st['median_cycle_wall_s']} s; graph captures "
+          f"{st['graph_captures']}, re-stages {st['graph_restages']}, "
+          f"capture {st['capture_s']:.3f} s")
+
+
+def sync_debug_group(pool, target, router_kw, prompts, new_tokens,
+                     device) -> dict:
+    """A session whose fourth cycle (cycle 0 per-op, 1 captures, 2
+    replays) runs its one fused group under
+    ``torch.cuda.set_sync_debug_mode("error")``: anything but the
+    summary's wait that synchronises raises.  Returns the host syncs and
+    fused groups that cycle counted (1 and 1)."""
+    from repro_torch.core import ChainRouter
+    router = ChainRouter(pool, target, device=device,
+                         **dict(router_kw, profile_every=1000))
+    n, L = prompts.shape
+    sess = router.start_session(n, L + 2 * new_tokens + 32,
+                                session_id="sync_debug")
+    for s in range(n):
+        sess.admit(s, prompts[s], new_tokens)
+    for _ in range(3):
+        sess.run_cycle()
+    c = router.profiler.counters
+    before = (c["host_sync"], c["groups.fused"])
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.run_cycle()
+    except RuntimeError as e:
+        raise PhaseFailed(f"a fused group synchronised outside its summary "
+                          f"wait: {e}") from e
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    out = {"host_syncs": c["host_sync"] - before[0],
+           "fused_groups": c["groups.fused"] - before[1],
+           "sync_debug_mode": "error" if cuda else None}
+    sess.close()
+    if out["host_syncs"] != 1 or out["fused_groups"] != 1:
+        raise PhaseFailed(f"a fused cycle of one group made {out}")
+    return out
 
 
 def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
@@ -794,6 +880,8 @@ def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
     prompts = _prompts(n_prompts, prompt_len, cfgs[-1].vocab_size, seed)
     plens = np.full(n_prompts, prompt_len)
     options = serving_runs(names)
+    for label in PER_OP_TWINS:
+        options[label + "_per_op"] = dict(options[label], fused=False)
     runs, outs = {}, {}
 
     def run(label, fn):
@@ -807,19 +895,28 @@ def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
         return out
 
     for label, kw in options.items():
-        outs[label] = run(label, lambda: ChainRouter(
-            pool, target, device=device, **kw).generate(
-                prompts, plens, new_tokens, request_id=label))
+        router = ChainRouter(pool, target, device=device, **kw)
+        outs[label] = run(label, lambda: router.generate(
+            prompts, plens, new_tokens, request_id=label))
         runs[label].update(
             cycles=outs[label].steps, tokens=outs[label].committed_tokens,
             chains=sorted({"->".join(c) for c, _ in
-                           outs[label].chain_history}))
+                           outs[label].chain_history}),
+            fused=fused_stats(router, outs[label].cycle_wall_s))
+        _print_fused(label, runs[label]["fused"])
+        if kw.get("fused", True) and runs[label]["fused"]["groups_fused"] \
+                <= 0:
+            raise PhaseFailed(f"{label}: no group ran fused")
         if label == "fixed_chain":
             sess_outs, sess_cycles = run("session", lambda: _session_run(
                 pool, target, prompts, new_tokens, device))
             runs["session"].update(
                 cycles=sess_cycles,
                 tokens=int(sum(len(o) for o in sess_outs)))
+    sync_debug = {label: sync_debug_group(pool, target, options[label],
+                                          prompts, new_tokens, device)
+                  for label in PER_OP_TWINS}
+    print(f"[fused] one fused group under sync debug mode: {sync_debug}")
     for label, rec in runs.items():
         rec["tokens_per_s"] = rec["tokens"] / rec["wall_s"]
         print(f"[serving] {label}: {rec['tokens']} tokens in "
@@ -859,7 +956,8 @@ def phase_serving(device, cfgs, dtype=torch.bfloat16, n_prompts=4,
             raise PhaseFailed(f"kernels never launched on their path: "
                               f"{missing}")
     return {"runs": runs, "launches": totals, "peak_gib": peak,
-            "stream_equal_to_fixed_chain": same, "profile": profiles}
+            "stream_equal_to_fixed_chain": same, "profile": profiles,
+            "sync_debug": sync_debug}
 
 
 KERNEL_CLASSES = (("attention", ("flash_decode_kernel", "combine_kernel")),
@@ -913,6 +1011,7 @@ def _profile_generate(pool, target, router_kw, prompts, plens, new_tokens,
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + us, n + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    n_events = sum(n for _, n in by_name.values())
     classes = {c: 0.0 for c, _ in KERNEL_CLASSES}
     classes["other"] = 0.0
     for name, (t, _) in by_name.items():
@@ -921,14 +1020,15 @@ def _profile_generate(pool, target, router_kw, prompts, plens, new_tokens,
         classes[cls] += t / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {"profiled_wall_s": wall, "wall_s": plain_wall_s,
-           "device_busy_ms": busy_ms,
+           "device_busy_ms": busy_ms, "device_activities": n_events,
            "busy_share": busy_ms / 1e3 / plain_wall_s, "class_ms": classes,
            "top": [{"kernel": k[:90], "ms": t / 1e3, "launches": n}
                    for k, (t, n) in top]}
     print(f"[serving] profile ({label}): device busy {busy_ms:.1f} ms "
           f"= {out['busy_share']:.1%} of the unprofiled {plain_wall_s:.3f} s "
-          f"(profiled wall {wall:.3f} s); "
-          f"by class ms {({c: round(v, 1) for c, v in classes.items()})}")
+          f"(profiled wall {wall:.3f} s); {n_events} kernels, copies and "
+          f"memsets; by class ms "
+          f"{({c: round(v, 1) for c, v in classes.items()})}")
     for row in out["top"]:
         print(f"[serving]   {row['ms']:8.2f} ms {row['launches']:6d}x "
               f"{row['kernel']}")
@@ -959,7 +1059,8 @@ def add_twin(pool, target: str) -> str:
     return cfg.name
 
 
-def _twin_session(pool, names, twin, prompts, new_tokens, device):
+def _twin_session(pool, names, twin, prompts, new_tokens, device,
+                  fused=True):
     """A contiguous session whose rows hold little more than prompt and
     budget: slots 0, 1 and 3 (admitted mid-flight) run the 2x2x1 tree
     through the twin, slot 2 a window-4 linear chain draft -> twin ->
@@ -969,7 +1070,8 @@ def _twin_session(pool, names, twin, prompts, new_tokens, device):
     from repro_torch.core import ChainRouter
     target = names[-1]
     router = ChainRouter(pool, target, adaptive=True, paged=False,
-                         tree_shapes=(str(TREE),), device=device)
+                         fused=fused, tree_shapes=(str(TREE),),
+                         device=device)
     n, L = prompts.shape
     sess = router.start_session(
         num_slots=n, max_len=L + new_tokens + router.max_block + 6,
@@ -1001,8 +1103,9 @@ def phase_output(device, cfgs, n_prompts=4, prompt_len=128, new_tokens=32,
     on the same fp32 weights: the chain of all three models (window 4 or
     the 2x2x1 tree, paged or contiguous), the 2x2x1 tree through a twin of
     the target (paged, ``generate``), and a contiguous session through the
-    twin (``_twin_session``).  The twin paths must keep drafts (more than
-    one token per cycle) and the session must defragment.  Verify blocks,
+    twin (``_twin_session``), each fused and per-op.  The twin paths must
+    keep drafts (more than one token per cycle), the session must
+    defragment and every fused path must run groups fused.  Verify blocks,
     tree levels and single-token steps use different GEMM shapes, so a
     divergence is accepted only at a near-tie of the target (top-2 logit
     gap < ``tie_gap``)."""
@@ -1016,7 +1119,7 @@ def phase_output(device, cfgs, n_prompts=4, prompt_len=128, new_tokens=32,
     prompts = _prompts(n_prompts, prompt_len, cfgs[-1].vocab_size, seed)
     plens = np.full(n_prompts, prompt_len)
     ref = ChainRouter(pool, target, adaptive=False, fixed_chain=(target,),
-                      fixed_window=1, device=device).generate(
+                      fixed_window=1, fused=False, device=device).generate(
                           prompts, plens, new_tokens, request_id="ref")
     options = serving_runs(names)
     options["twin_paged_tree"] = dict(adaptive=False,
@@ -1024,51 +1127,75 @@ def phase_output(device, cfgs, n_prompts=4, prompt_len=128, new_tokens=32,
                                       fixed_tree=str(TREE))
     results = {}
     for path in OUTPUT_PATHS:
-        t0 = time.perf_counter()
-        if path == "twin_contiguous_session":
-            streams, per_cycle, defrags = _twin_session(
-                pool, names, twin, prompts, new_tokens, device)
-            extra = {"commits_per_active_cycle": per_cycle,
-                     "defragments": defrags}
-            kept = min(per_cycle) > 1.0 and defrags > 0
-        else:
-            spec = ChainRouter(pool, target, device=device,
-                               **options[path]).generate(
-                                   prompts, plens, new_tokens,
-                                   request_id=path)
-            streams = spec.generated
-            extra = {"cycles": {"speculative": spec.steps,
-                                "target_only": ref.steps}}
-            kept = spec.steps < ref.steps
-        divergences = []
-        for b in range(n_prompts):
-            got, want = streams[b], ref.generated[b]
-            if np.array_equal(got, want):
-                continue
-            n = min(len(got), len(want))
-            pos = int(np.argmax(got[:n] != want[:n])) if \
-                np.any(got[:n] != want[:n]) else n
-            gap = _top2_gap(pool, target,
-                            ref.sequences[b][:prompt_len + pos], device)
-            divergences.append({"row": b, "position": pos, "top2_gap": gap})
-            print(f"[output] {path} row {b} diverges at generated position "
-                  f"{pos}: target top-2 logit gap {gap:.3e} (tolerated "
-                  f"below {tie_gap})")
-            if gap >= tie_gap:
-                raise PhaseFailed(
-                    f"{path}: speculative output differs from target-only "
-                    f"greedy at row {b} position {pos} without a near-tie "
-                    f"(gap {gap:.3e})")
-        print(f"[output] fp32 {path} vs target-only: "
-              f"{n_prompts - len(divergences)}/{n_prompts} rows identical, "
-              f"{extra} ({time.perf_counter() - t0:.1f} s)")
-        if path.startswith("twin") and not kept:
-            raise PhaseFailed(f"{path}: the twin's drafts were not kept or "
-                              f"the session never defragmented: {extra}")
-        results[path] = {"identical_rows": n_prompts - len(divergences),
-                         "rows": n_prompts, "divergences": divergences,
-                         **extra}
+        streams = {}
+        for fused in (True, False):
+            name = path if fused else path + "_per_op"
+            results[name], streams[fused] = _output_path(
+                pool, names, twin, target, path, options, fused, prompts,
+                plens, new_tokens, ref, tie_gap, device)
+        same = sum(np.array_equal(a, b)
+                   for a, b in zip(streams[True], streams[False]))
+        results[path]["identical_rows_fused_vs_per_op"] = int(same)
+        print(f"[output] fp32 {path}: fused and per-op identical on "
+              f"{same}/{n_prompts} rows")
     return results
+
+
+def _output_path(pool, names, twin, target, path, options, fused, prompts,
+                 plens, new_tokens, ref, tie_gap, device):
+    """One path of phase 5, fused or per-op, against target-only greedy:
+    (its record, its streams)."""
+    from repro_torch.core import ChainRouter
+    n_prompts, prompt_len = prompts.shape
+    name = path if fused else path + "_per_op"
+    t0 = time.perf_counter()
+    groups_fused = None
+    if path == "twin_contiguous_session":
+        streams, per_cycle, defrags = _twin_session(
+            pool, names, twin, prompts, new_tokens, device, fused=fused)
+        extra = {"commits_per_active_cycle": per_cycle,
+                 "defragments": defrags}
+        kept = min(per_cycle) > 1.0 and defrags > 0
+    else:
+        router = ChainRouter(pool, target, device=device,
+                             **dict(options[path], fused=fused))
+        spec = router.generate(prompts, plens, new_tokens, request_id=path)
+        streams = spec.generated
+        groups_fused = int(router.profiler.counters["groups.fused"])
+        extra = {"cycles": {"speculative": spec.steps,
+                            "target_only": ref.steps},
+                 "groups_fused": groups_fused}
+        kept = spec.steps < ref.steps
+    divergences = []
+    for b in range(n_prompts):
+        got, want = streams[b], ref.generated[b]
+        if np.array_equal(got, want):
+            continue
+        n = min(len(got), len(want))
+        pos = int(np.argmax(got[:n] != want[:n])) if \
+            np.any(got[:n] != want[:n]) else n
+        gap = _top2_gap(pool, target,
+                        ref.sequences[b][:prompt_len + pos], device)
+        divergences.append({"row": b, "position": pos, "top2_gap": gap})
+        print(f"[output] {name} row {b} diverges at generated position "
+              f"{pos}: target top-2 logit gap {gap:.3e} (tolerated "
+              f"below {tie_gap})")
+        if gap >= tie_gap:
+            raise PhaseFailed(
+                f"{name}: speculative output differs from target-only "
+                f"greedy at row {b} position {pos} without a near-tie "
+                f"(gap {gap:.3e})")
+    print(f"[output] fp32 {name} vs target-only: "
+          f"{n_prompts - len(divergences)}/{n_prompts} rows identical, "
+          f"{extra} ({time.perf_counter() - t0:.1f} s)")
+    if path.startswith("twin") and not kept:
+        raise PhaseFailed(f"{name}: the twin's drafts were not kept or "
+                          f"the session never defragmented: {extra}")
+    if fused and groups_fused == 0:
+        raise PhaseFailed(f"{name}: no group ran fused")
+    return ({"identical_rows": n_prompts - len(divergences),
+             "rows": n_prompts, "divergences": divergences, **extra},
+            streams)
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,23 @@ the masked prefix of its next block.
 lazy chain membership: a slot holds state only in its chain's models.
 ``ChainRouter.generate`` is a bulk wrapper over one session.
 
-Not ported, and rejected with NotImplementedError: the fused
-device-resident cycle (``fused=True``) and sampling (``greedy=False``).
+Device-resident cycles (default, ``fused=True``): each sub-cycle group
+runs as ONE device program (``Executor.fused_cycle``; a replayed CUDA
+graph on the card) over the session buffers (seq / seq_len / active /
+budgets) and every chain member's state; only the group's summary
+crosses to the host, in one copy, and the host mirror of ``seq`` /
+``seq_len`` / ``active`` is rebuilt from it exactly.  Because fusing
+hides per-op timings, every ``profile_every``-th cycle (default 16,
+cycle 0 included) runs the per-op path instead, refreshing the
+scheduler's ``T_i`` EMAs.  A group also runs per-op when a chain member
+has no per-op timing yet, when a catch-up gap is wider than the
+program's static prefix, or under capacity pressure (the per-op path
+owns the defragment and re-prefill escapes); each escape is counted
+(``groups.per_op.<why>``).  ``fused=False`` keeps the host-orchestrated
+per-op loop everywhere: the bit-exact A/B baseline.
+
+Not ported, and rejected with NotImplementedError: sampling
+(``greedy=False``).
 """
 from __future__ import annotations
 
@@ -43,9 +58,11 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from . import verification as ver
-from .executor import (DraftRequest, DraftTreeRequest, Executor,
-                       InsertRequest, PrefillRequest, ResolveTreeRequest,
-                       RollbackRequest, VerifyRequest, VerifyTreeRequest)
+from ..models.kv_cache import PagedModelState
+from .executor import (NO_POOL, DraftRequest, DraftTreeRequest, Executor,
+                       FusedCycleRequest, InsertRequest, PrefillRequest,
+                       ResolveTreeRequest, RollbackRequest, VerifyRequest,
+                       VerifyTreeRequest)
 from .model_pool import ModelPool
 from .profiler import PerformanceProfiler
 from .scheduler import ChainChoice, ModelChainScheduler
@@ -108,13 +125,11 @@ class ChainRouter:
                  tree_shapes: Sequence = (),
                  fixed_tree=None,
                  paged: bool = True,
-                 fused: bool = False,
+                 fused: bool = True,
+                 profile_every: int = 16,
                  device="cuda"):
-        for flag, what in ((fused, "the fused device-resident cycle "
-                                   "(fused=True)"),
-                           (not greedy, "sampling (greedy=False)")):
-            if flag:
-                raise NotImplementedError(f"{what} is not ported")
+        if not greedy:
+            raise NotImplementedError("sampling (greedy=False) is not ported")
         self.device = resolve_device(device)
         if pool.device != self.device:
             raise ValueError(f"pool lives on {pool.device}, router asked "
@@ -122,6 +137,11 @@ class ChainRouter:
         self.pool = pool
         self.target = target
         self.paged = paged
+        # one device program per sub-cycle group, with a per-op profiling
+        # cycle every ``profile_every`` cycles (0 = never; otherwise cycle
+        # 0 is one, so the scheduler starts with real per-op timings)
+        self.fused = fused
+        self.profile_every = int(profile_every)
         self.eos = eos_token
         self.adaptive = adaptive
         self.fixed_chain = tuple(fixed_chain) if fixed_chain else None
@@ -220,11 +240,11 @@ class ChainRouter:
         sid = StateManager.key(m, request_id)
         st = self.states.get(sid)
         if not self.paged:
-            if st.write_ptr + needed <= st.capacity:
+            if int(st.write_ptr) + needed <= st.capacity:
                 return
             self.states.defragment(sid)
             self.profiler.count(f"defrag.{m}")
-            if self.states.get(sid).write_ptr + needed <= st.capacity:
+            if int(self.states.get(sid).write_ptr) + needed <= st.capacity:
                 return
         else:
             sel = (np.ones(st.batch, bool) if rows is None
@@ -616,6 +636,19 @@ class RouterSession:
         self._members: Dict[str, np.ndarray] = {}
         self._slot_choice: List[Optional[ChainChoice]] = [None] * B
         self._forced: np.ndarray = np.zeros(B, bool)
+        # fused cycles: the numpy arrays above are the HOST MIRROR; the
+        # device session buffers (``_dev``, fixed tensors a captured graph
+        # reads and writes, filled from ``_host``, pinned on the card) are
+        # authoritative between fused cycles and re-uploaded whenever a
+        # host path changed the mirror (``_dev_stale``)
+        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._host: Dict[str, torch.Tensor] = {}
+        self._dev_stale = True
+        # summary-fed host views of the chain members' cursors, so the
+        # fused path's gap and capacity checks read nothing on the device;
+        # cleared by every host-path state op
+        self._len_cache: Dict[str, np.ndarray] = {}
+        self._wp_cache: Dict[str, tuple] = {}
 
     # ---- scheduling helpers -------------------------------------------
     def _skey(self, slot: int) -> str:
@@ -634,6 +667,12 @@ class RouterSession:
         return r.scheduler.get_optimal_chain(slot=self._skey(slot))
 
     # ---- membership surgery -------------------------------------------
+    def _invalidate_state_caches(self) -> None:
+        """A host-path state op ran (prefill, insert, free, a per-op
+        cycle): the summary-fed cursor views are stale."""
+        self._len_cache.clear()
+        self._wp_cache.clear()
+
     def _materialize_row(self, m: str, slot: int) -> Optional[torch.Tensor]:
         """Ensure model ``m`` holds slot ``slot``'s committed stream
         (first member: row-scoped prefill; later: catch-up insert).
@@ -643,6 +682,7 @@ class RouterSession:
         mem = self._members.setdefault(m, np.zeros(B, bool))
         if mem[slot]:
             return None
+        self._invalidate_state_caches()
         sid = StateManager.key(m, self.session_id)
         if not r.states.exists(sid):
             rows = np.zeros(B, bool)
@@ -663,6 +703,7 @@ class RouterSession:
         mem = self._members.get(m)
         if mem is None or not mem[slot]:
             return
+        self._invalidate_state_caches()
         rows = np.zeros(self.num_slots, bool)
         rows[slot] = True
         self.router.executor.retire(m, self.session_id, rows)
@@ -683,6 +724,7 @@ class RouterSession:
             missing = rows & ~mem
             if not missing.any():
                 continue
+            self._invalidate_state_caches()
             if not r.states.exists(StateManager.key(m, self.session_id)):
                 r._prefill_model(m, self.session_id, self.seq,
                                  self.seq_len, self.max_len, rows=missing)
@@ -736,6 +778,7 @@ class RouterSession:
             choice = ChainChoice(chain, window or (r.fixed_window or 4), 0.0,
                                  tree=tr)
         t0 = _time.perf_counter()
+        self._dev_stale = True      # the mirror changes: re-upload
         self.seq[slot, :] = 0
         self.seq[slot, :Lp] = prompt
         self.seq_len[slot] = Lp
@@ -766,6 +809,8 @@ class RouterSession:
         routed through it, and seed similarity from the probe."""
         r = self.router
         B = self.num_slots
+        self._dev_stale = True
+        self._invalidate_state_caches()
         occ = np.where(self.occupied)[0]
         for s in occ:
             if self._slot_choice[s] is None:
@@ -811,10 +856,183 @@ class RouterSession:
                     self._release_member(m, int(s))
             self._slot_choice[s] = new
 
+    # ---- device-resident fused cycles ---------------------------------
+    def _sync_device(self, gmask: np.ndarray) -> None:
+        """Fill the device session buffers from the host mirror if a host
+        path changed it since the last fused cycle, and the group mask
+        always.  Copies go from pinned memory without a wait: each fused
+        group ends in its summary's wait, before the next fill."""
+        dev = self.router.device
+        if self._dev is None:
+            B, S = self.seq.shape
+            shapes = {"seq": ((B, S), torch.int32),
+                      "seq_len": ((B,), torch.int32),
+                      "prompt_len": ((B,), torch.int32),
+                      "budget": ((B,), torch.int32),
+                      "active": ((B,), torch.bool),
+                      "gmask": ((B,), torch.bool)}
+            pin = dev.type == "cuda"
+            self._host = {k: torch.empty(shape, dtype=dt, pin_memory=pin)
+                          for k, (shape, dt) in shapes.items()}
+            self._dev = {k: torch.empty(shape, dtype=dt, device=dev)
+                         for k, (shape, dt) in shapes.items()}
+            self._dev_stale = True
+        names = ["gmask"]
+        self._host["gmask"].numpy()[:] = gmask
+        if self._dev_stale:
+            for k in ("seq", "seq_len", "prompt_len", "budget", "active"):
+                self._host[k].numpy()[...] = getattr(self, k)
+            names += ["seq", "seq_len", "prompt_len", "budget", "active"]
+            self._dev_stale = False
+        for k in names:
+            self._dev[k].copy_(self._host[k], non_blocking=True)
+
+    def _cached_lengths(self, m: str) -> np.ndarray:
+        """Per-row cache lengths of model ``m``: the summary-fed view when
+        fresh, else one read from the live state."""
+        v = self._len_cache.get(m)
+        if v is None:
+            v = self.router.states.lengths(
+                StateManager.key(m, self.session_id))
+            self._len_cache[m] = v
+        return v
+
+    def _chain_timed(self, chain: Tuple[str, ...],
+                     tree: Optional[TokenTree]) -> bool:
+        """True when every chain member has per-op timings (the
+        scheduler's Eq. 7 inputs): a draft decode (``decode_level`` for
+        the tree's shape) and a verify EMA per verifier level."""
+        emas = self.router.profiler.emas
+        draft_key = (("decode_level", chain[0], tree.branching)
+                     if tree is not None else ("decode1", chain[0]))
+        e = emas.get(draft_key)
+        if e is None or e.count == 0:
+            return False
+        return all(any(k[0] == "verify" and k[1] == m and v.count
+                       for k, v in emas.items() if len(k) == 3)
+                   for m in chain[1:])
+
+    def _fused_capacity_ok(self, m: str, needed: int,
+                           rows: np.ndarray) -> bool:
+        """Non-mutating mirror of ``_ensure_capacity`` on the summary-fed
+        cursors: True when model ``m`` takes ``needed`` more entries for
+        every row in ``rows`` without a defragment or re-prefill (which
+        only the per-op path runs)."""
+        st = self.router.states.get(StateManager.key(m, self.session_id))
+        info = self._wp_cache.get(m)
+        if info is None:                # one read from the live state
+            paged = isinstance(st, PagedModelState)
+            info = (np.broadcast_to(st.write_ptr.cpu().numpy(), (st.batch,)),
+                    int(st.free_top) if paged else None,
+                    st.num_blocks.cpu().numpy() if paged else None)
+            self._wp_cache[m] = info
+        wp, free_top, nb = info
+        sel = np.asarray(rows, bool)
+        if not sel.any():
+            return True
+        if free_top is None:            # contiguous: one shared pointer
+            return bool(int(np.max(wp)) + needed <= st.capacity)
+        high = wp[sel] + needed
+        new_blocks = np.maximum(-(-high // st.block_size) - nb[sel], 0)
+        return bool(high.max() <= st.capacity
+                    and int(new_blocks.sum()) <= free_top)
+
+    def _run_fused_group(self, chain: Tuple[str, ...], window: int,
+                         tree: Optional[TokenTree], gmask: np.ndarray,
+                         slot_keys: Sequence[str]) -> Optional[np.ndarray]:
+        """Run one sub-cycle group as a single device program.  Returns
+        the per-row raw commits, or None when the group must run per-op
+        this cycle (counted by reason)."""
+        r = self.router
+        tree = tree if len(chain) > 1 else None
+        # fused cycles produce no T_i measurements: a member without one
+        # (a freshly explored model) runs per-op, so the first cycle of a
+        # new chain doubles as its profiling cycle
+        if not self._chain_timed(chain, tree):
+            return self._per_op("untimed")
+        depth = tree.depth_levels if tree is not None else window
+        # the worst consensus gap is the target's longest accept (W+N-2
+        # linear, D tree), +1 for t_last, +1 slack; a target-only chain
+        # never lags by more than 1
+        p_max = (depth + len(chain)) if len(chain) > 1 else 2
+        gmax = 0
+        for m in chain:
+            gap = np.where(gmask, (self.seq_len - 1) - self._cached_lengths(m),
+                           0)
+            if gap.min() < 0 or gap.max() > p_max - 1:
+                return self._per_op("gap")          # the re-prefill escape
+            gmax = max(gmax, int(gap.max()))
+        # pow-2 prefix widths (min 2 = [t_last] + 1 gap slot), as the
+        # per-op path buckets its gaps: few programs, and the steady state
+        # (gap 0) runs the narrow one
+        P = 2
+        while P - 1 < gmax:
+            P *= 2
+        P = min(P, p_max)
+        block = tree.num_nodes if tree is not None else window
+        needed = P + block + len(chain)
+        if not all(self._fused_capacity_ok(m, needed, gmask) for m in chain):
+            return self._per_op("capacity")   # defragment/re-prefill escape
+        self._sync_device(gmask)
+        d = self._dev
+        try:
+            s = r.executor.fused_cycle(FusedCycleRequest(
+                chain=chain, request_id=self.session_id,
+                window=window, tree=tree, prefix_width=P, eos=r.eos,
+                seq=d["seq"], seq_len=d["seq_len"],
+                prompt_len=d["prompt_len"], budget=d["budget"],
+                active=d["active"], gmask=d["gmask"]))
+        except BaseException:
+            # the buffers may hold a partly run cycle: re-upload the (still
+            # exact) host mirror next time
+            self._dev = None
+            self._dev_stale = True
+            raise
+        r.profiler.count("groups.fused")
+        # --- mirror the one-transfer summary onto the host ----------------
+        cnum = s.n_committed.astype(np.int64)
+        rows = np.where(cnum > 0)[0]
+        if rows.size:
+            keep = np.arange(s.slab.shape[1])[None, :] < cnum[rows][:, None]
+            rr, cc = np.nonzero(keep)
+            self.seq[rows[rr], self.seq_len[rows][rr] + cc] = \
+                s.slab[rows[rr], cc]
+        self.seq_len[:] = np.where(gmask, s.new_seq_len, self.seq_len)
+        self.active[:] = np.where(gmask, s.new_active, self.active)
+        for i, m in enumerate(chain):
+            self._len_cache[m] = s.lengths[i]
+            paged = s.free_top[i] != NO_POOL
+            self._wp_cache[m] = (s.write_ptr[i],
+                                 int(s.free_top[i]) if paged else None,
+                                 s.num_blocks[i] if paged else None)
+        # --- feedback loops (the per-op cycle's signals and keys): tree
+        # cycles verify the draft's distributions at every level, so their
+        # DTV belongs to the (draft, verifier) pair
+        for lvl in range(s.accepts.shape[0]):
+            sim_prod = chain[0] if tree is not None else chain[lvl]
+            verif = chain[lvl + 1]
+            if gmask.any():
+                r.sims.update(sim_prod, verif,
+                              float(np.mean(s.dtv[lvl][gmask])))
+                r._observe_slots(slot_keys, sim_prod, verif, s.dtv[lvl],
+                                 gmask)
+            r.profiler.count(f"accept.{chain[lvl]}->{verif}",
+                             float(np.sum(s.accepts[lvl][gmask])))
+        if len(chain) > 1:
+            r.profiler.count("cycles")
+            r.profiler.count("committed", float(cnum.sum()))
+        return cnum
+
+    def _per_op(self, why: str) -> None:
+        self.router.profiler.count(f"groups.per_op.{why}")
+        return None
+
     def run_cycle(self) -> CycleReport:
         """One speculative cycle over every active slot: slots grouped by
         (chain, window, tree shape), one masked sub-cycle per group, then
-        per-slot budget/EOS termination."""
+        per-slot budget/EOS termination.  With ``router.fused`` (default)
+        each group is one device program and one host transfer; every
+        ``profile_every``-th cycle runs the per-op path instead."""
         r = self.router
         B = self.num_slots
         if not self.active.any():
@@ -830,15 +1048,29 @@ class RouterSession:
         gen_before = (self.seq_len - self.prompt_len).copy()
         n_acc = np.zeros(B, np.int64)
         ginfo: List[Tuple[Tuple[str, ...], int, int]] = []
+        profiling = r.fused and r.profile_every > 0 and \
+            self.steps % r.profile_every == 0
         t0 = _time.perf_counter()
         for (chain, window, tree), gmask in groups.items():
             gmask = gmask & self.active
             if not gmask.any():
                 continue
             self._ensure_members(chain, gmask)
-            acc = r._one_cycle(chain, window, self.session_id, self.seq,
-                               self.seq_len, gmask, members=self._members,
-                               slot_keys=slot_keys, tree=tree)
+            acc = None
+            if r.fused:
+                acc = (self._per_op("profile") if profiling else
+                       self._run_fused_group(chain, window, tree, gmask,
+                                             slot_keys))
+            if acc is None:
+                acc = r._one_cycle(chain, window, self.session_id, self.seq,
+                                   self.seq_len, gmask,
+                                   members=self._members,
+                                   slot_keys=slot_keys, tree=tree)
+                r.profiler.count("groups.per_op")
+                # the per-op path changed the mirror and the states: a
+                # later fused group re-uploads and re-reads the cursors
+                self._dev_stale = True
+                self._invalidate_state_caches()
             n_acc += np.asarray(acc, np.int64)   # groups are row-disjoint
             self.chain_history.append((chain, window))
             ginfo.append((chain, window, int(gmask.sum())))
@@ -870,6 +1102,7 @@ class RouterSession:
         out = self.generated(slot)
         for m in list(self._members):
             self._release_member(m, slot)
+        self._dev_stale = True
         self.occupied[slot] = False
         self.active[slot] = False
         self.seq_len[slot] = 0
@@ -888,3 +1121,8 @@ class RouterSession:
         self._members.clear()
         self._slot_choice = [None] * self.num_slots
         self._forced[:] = False
+        self.router.executor.release_session(self.session_id)
+        self._dev = None
+        self._host = {}
+        self._dev_stale = True
+        self._invalidate_state_caches()

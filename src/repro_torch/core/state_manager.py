@@ -1,14 +1,15 @@
 """StateManager (``repro.core.state_manager``, paper §4.4): lifecycle and
 replace-on-success updates of per-model states, paged or contiguous.
 
-Each op returns a new state and ``update`` swaps it in, so a failed
-processor call never leaves a half-updated registry entry (the paper's
-atomic rollback).  The KV pools inside a state are written in place by
-the forward; only the index buffers are replaced.  ``_lock`` guards the
-registry's read-modify-write sequences.  Contiguous states leak masked
-holes (divergent acceptance, dead tree branches, retired rows) that
-``defragment`` compacts; paged rows cannot leak holes into each
-other, so it is a no-op for them.
+Each op returns a new state and ``update`` swaps it in (the paper's
+atomic rollback for the registry entry).  The KV pools inside a state,
+and the contiguous state's index buffers, are written in place by the
+forward; the paged index buffers are replaced.  The fused cycle takes a
+chain's states with ``checkout`` and puts them back with ``commit``.
+``_lock`` guards the registry's read-modify-write sequences.
+Contiguous states leak masked holes (divergent acceptance, dead tree
+branches, retired rows) that ``defragment`` compacts; paged rows cannot
+leak holes into each other, so it is a no-op for them.
 """
 from __future__ import annotations
 
@@ -45,6 +46,19 @@ class StateManager:
     def update(self, state_id: str, state: State) -> None:
         with self._lock:
             self._states[state_id] = state
+
+    def checkout(self, state_ids) -> list:
+        """Atomically remove and return several states (fused-cycle entry):
+        the fused program writes their buffers in place, so no other reader
+        may hold them mid-cycle.  Pair with ``commit``."""
+        with self._lock:
+            return [self._states.pop(s) for s in state_ids]
+
+    def commit(self, state_ids, states) -> None:
+        """Write back states taken by ``checkout``."""
+        with self._lock:
+            for s, st in zip(state_ids, states):
+                self._states[s] = st
 
     def release(self, state_id: str) -> None:
         with self._lock:

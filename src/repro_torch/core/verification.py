@@ -24,12 +24,52 @@ the argmax, so the committed stream is again target-only greedy.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import ops
 from ..kernels.dtv import dtv_probs
+
+
+class TreeTensors(NamedTuple):
+    """A tree shape's static arrays on one device, built once per (tree,
+    device): a captured program may not upload from the host, and the
+    per-op path need not upload them on every call."""
+    parent_rows: torch.Tensor          # (N,) long: verify row of the parent
+    attend: torch.Tensor               # (N, N) bool ancestor-or-self
+    paths: torch.Tensor                # (L, D) long root->leaf node ids
+    level_depth: Tuple[torch.Tensor, ...]   # per level (n_d,) int32 = d
+    level_attend: Tuple[torch.Tensor, ...]  # per level (n_d, R_d) bool
+
+
+@functools.lru_cache(maxsize=64)
+def tree_tensors(tree, device: torch.device) -> TreeTensors:
+    def up(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    D = tree.depth_levels
+    return TreeTensors(
+        up(tree.parent + 1, torch.long), up(tree.attend),
+        up(tree.paths, torch.long),
+        tuple(up(np.full(tree.level_sizes[d], d, np.int32))
+              for d in range(D)),
+        tuple(up(tree.level_attend(d)) for d in range(D)))
+
+
+@functools.lru_cache(maxsize=64)
+def tree_block_masks(tree, prefix_width: int, device: torch.device):
+    """(spec_depth (G+N,) int32, spec_attend (G+N, N) bool) of a verify
+    block ``[gap prefix of width G ++ the tree's N nodes]``: the prefix
+    appends linearly, the nodes at their depths under the ancestor mask."""
+    N = tree.num_nodes
+    depth = np.concatenate([np.full(prefix_width, -1, np.int32),
+                            tree.depth]).astype(np.int32)
+    attend = np.concatenate([np.zeros((prefix_width, N), bool),
+                             tree.attend])
+    return (torch.as_tensor(depth, device=device),
+            torch.as_tensor(attend, device=device))
 
 
 class VerifyResult(NamedTuple):
@@ -117,9 +157,7 @@ def verify_tree(tree, candidates: torch.Tensor,
     B, N = candidates.shape
     D = tree.depth_levels
     dev = candidates.device
-    parent_rows = torch.as_tensor(tree.parent + 1, device=dev).long()
-    attend = torch.as_tensor(tree.attend, device=dev)
-    paths = torch.as_tensor(tree.paths, device=dev).long()
+    parent_rows, attend, paths, _, _ = tree_tensors(tree, dev)
     am, m, s, _ = ops.verify_row_stats(
         verifier_logits, torch.zeros((B, N + 1), dtype=torch.int32,
                                      device=dev))

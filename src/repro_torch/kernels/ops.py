@@ -3,10 +3,17 @@
 A CPU tensor goes to the kernel's plain PyTorch version (the CPU path and
 the oracle); a CUDA tensor goes to the hand-written Hopper kernel, which
 launches or raises.  Nothing falls back from one to the other.
+
+Launch counts under CUDA graphs: a wrapper counts when its Python runs,
+which for a captured program is once, at capture, when nothing executes.
+``recorded_launches`` takes a capture's counts off the counters and keeps
+them; the owner of the graph adds them back with ``add_launches`` at
+every replay, so the counts stay the number of kernels that ran.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 import torch
 
@@ -36,6 +43,26 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in COUNTERS:
         c.count = 0
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[str, int]]:
+    """Around a graph capture: the launches counted inside the block are
+    taken off the counters and left in the yielded dict."""
+    before = launch_counts()
+    rec: Dict[str, int] = {}
+    try:
+        yield rec
+    finally:
+        for c in COUNTERS:
+            rec[c.name] = c.count - before[c.name]
+            c.count = before[c.name]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """A replay of a captured graph ran these launches."""
+    for c in COUNTERS:
+        c.count += counts.get(c.name, 0)
 
 
 def paged_decode_attention(q: torch.Tensor, k_flat: torch.Tensor,

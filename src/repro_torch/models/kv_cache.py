@@ -17,26 +17,37 @@ shared pool of fixed-size KV blocks:
   free_stack   (P,)   int32  — LIFO free list of pool block ids
   free_top     ()     int32  — number of free blocks
 
-and per-layer attention pools are flat ``(L, P·bs, Hkv, hd)`` tensors.
+and per-layer attention pools are flat ``(L, (P+1)·bs, Hkv, hd)`` tensors:
+pool blocks ``0 … P-1`` and one spare block ``P`` that takes the writes
+the fixed-shape K/V scatter drops (``scatter_plan``).  No block table
+names the spare, so no reader sees it.
 ``ModelState`` (contiguous, ``paged=False``) has one shared append
-pointer ``write_ptr`` — a host integer, since every append slices the
-per-layer ``(L, B, S, Hkv, hd)`` caches at it — and rewinds it past the
+pointer ``write_ptr``, a device int32 scalar as in the reference: every
+append writes the per-layer ``(L, B, S, Hkv, hd)`` caches and the index
+buffers in place at that device offset, and rollback rewinds it past the
 invalid suffix common to all rows (the reference's Eq. 9 adaptation);
 holes left by divergent acceptance or dead tree branches stay masked
 until ``defragment`` compacts them.
 
-The index buffers are replaced functionally (every op returns a new
-state, as in the reference), while the KV tensors are written in place:
-copying a multi-GB cache per step would dominate serving memory traffic.
-Writes the reference drops (its ``mode="drop"`` scatters) land in a spare
-column that is sliced away; where the reference's ``dynamic_slice`` /
-``dynamic_update_slice`` would clamp an out-of-range start, the port
-raises instead.
+No op reads a tensor on the host or uploads one from it, so the fused
+speculation cycle can capture every op in a CUDA graph.  The paged index
+buffers are replaced functionally (every op returns a new state, as in
+the reference); the KV tensors, and the contiguous state's index buffers,
+are written in place: copying a multi-GB cache per step would dominate
+serving memory traffic.  Writes the reference drops (its ``mode="drop"``
+scatters) land in a spare column that is sliced away.  Where the
+reference's ``dynamic_slice`` / ``dynamic_update_slice`` would clamp an
+out-of-range start, the per-op path raises instead; inside the fused
+program (``no_host_checks``) the router's capacity guard has ruled the
+overrun out before the program runs, and the write clamps as the
+reference does.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -112,13 +123,15 @@ def make_paged_state(batch: int, max_len: int, layers: Dict[str, Any],
 def make_paged_attn_cache(num_layers: int, pool_blocks: int, block_size: int,
                           num_kv_heads: int, head_dim: int, dtype, *,
                           device) -> Dict[str, torch.Tensor]:
-    shape = (num_layers, pool_blocks * block_size, num_kv_heads, head_dim)
+    """Flat K/V pools of ``pool_blocks`` blocks plus the spare block."""
+    shape = (num_layers, (pool_blocks + 1) * block_size, num_kv_heads,
+             head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _scatter_cols(buf: torch.Tensor, cols: torch.Tensor,
-                  vals: torch.Tensor) -> torch.Tensor:
+def scatter_cols(buf: torch.Tensor, cols: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
     """``buf[b, cols[b, j]] = vals[b, j]`` for in-range cols; entries with
     cols outside ``[0, width)`` are dropped (reference ``mode="drop"``)."""
     B, W = buf.shape
@@ -173,7 +186,7 @@ def _alloc_blocks(state: PagedModelState, n_new_tokens: torch.Tensor,
     cols = torch.where(ok, state.num_blocks[:, None] + j, R)
     got = ok.sum(dim=1, dtype=torch.int32)
     return dataclasses.replace(
-        state, block_table=_scatter_cols(state.block_table, cols, pid),
+        state, block_table=scatter_cols(state.block_table, cols, pid),
         num_blocks=state.num_blocks + got,
         free_top=state.free_top - got.sum(dtype=torch.int32))
 
@@ -183,17 +196,16 @@ def _push_free_blocks(state: PagedModelState,
     """Return the table entries flagged in ``to_free`` (B, R) to the pool:
     push their ids on the free stack (row-major order), null the entries.
     Index work only — the pools are never touched."""
-    B, R = state.block_table.shape
     P = state.pool_blocks
     to_free = to_free & (state.block_table >= 0)
     flat_free = to_free.reshape(-1)
     ids = torch.where(flat_free, state.block_table.reshape(-1), -1)
-    order = torch.sort((~flat_free).to(torch.int8), stable=True).indices
+    # the i-th freed entry in row-major order goes to free_top + i
+    rank = torch.cumsum(flat_free.to(torch.int32), dim=0) - 1
+    pos = torch.where(flat_free, state.free_top + rank, P)
     cnt = flat_free.sum(dtype=torch.int32)
-    i = torch.arange(B * R, dtype=torch.int32, device=state.device)
-    pos = torch.where(i < cnt, state.free_top + i, P)
-    stack = _scatter_cols(state.free_stack[None, :], pos[None, :],
-                          ids[order][None, :])[0]
+    stack = scatter_cols(state.free_stack[None, :], pos[None, :],
+                         ids[None, :])[0]
     return dataclasses.replace(
         state, block_table=torch.where(to_free, -1, state.block_table),
         free_stack=stack, free_top=state.free_top + cnt)
@@ -214,9 +226,9 @@ def paged_append_tokens(state: PagedModelState, tokens: torch.Tensor,
     slots = torch.where(valid, state.write_ptr[:, None] + cnt - 1, BIG)
     new = dataclasses.replace(
         state,
-        token_buf=_scatter_cols(state.token_buf, slots, tokens),
-        pos_buf=_scatter_cols(state.pos_buf, slots, q_pos),
-        mask=_scatter_cols(state.mask, slots, valid),
+        token_buf=scatter_cols(state.token_buf, slots, tokens),
+        pos_buf=scatter_cols(state.pos_buf, slots, q_pos),
+        mask=scatter_cols(state.mask, slots, valid),
         length=state.length + adv,
         write_ptr=state.write_ptr + n_valid,
     )
@@ -244,23 +256,23 @@ def physical_view_index(state: PagedModelState) -> torch.Tensor:
     return pid.clamp(min=0) * bs + (s % bs)[None, :]
 
 
-def scatter_plan(phys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(rows of the flattened new entries to write, their pool slots) for
-    ``paged_scatter``: entries mapped to ``BIG`` are dropped.  Computed
-    once per forward (one host sync for the nonzero), reused by every
-    layer."""
+def scatter_plan(state: PagedModelState,
+                 phys: torch.Tensor) -> torch.Tensor:
+    """Pool slot of each of the B·T new entries for ``paged_scatter``, in
+    a shape fixed by (B, T): entries mapped to ``BIG`` go to the spare
+    block's first slot, which no reader sees.  Computed once per forward,
+    reused by every layer; it reads nothing on the host."""
     flat = phys.reshape(-1)
-    src = torch.nonzero(flat < BIG).squeeze(1)
-    return src, flat[src].long()
+    spare = state.pool_blocks * state.block_size
+    return torch.where(flat < BIG, flat, spare).long()
 
 
 def paged_scatter(cache_flat: torch.Tensor, new: torch.Tensor,
-                  plan: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """Write (B, T, ...) entries into a (P·bs, ...) pool in place at the
-    slots of ``plan`` (``scatter_plan``); returns the pool."""
-    src, dst = plan
+                  dst: torch.Tensor) -> torch.Tensor:
+    """Write (B, T, ...) entries into a flat pool in place at the slots
+    ``dst`` of ``scatter_plan``; returns the pool."""
     flat = new.reshape((-1,) + tuple(new.shape[2:]))
-    cache_flat.index_copy_(0, dst, flat[src].to(cache_flat.dtype))
+    cache_flat.index_copy_(0, dst, flat.to(cache_flat.dtype))
     return cache_flat
 
 
@@ -368,7 +380,7 @@ def paged_resolve_tree(state: PagedModelState, num_nodes: int,
         active[:, None],
         start + torch.arange(num_nodes, dtype=torch.int32,
                              device=state.device)[None, :], BIG)
-    keep_full = _scatter_cols(torch.zeros_like(state.mask), cols, keep)
+    keep_full = scatter_cols(torch.zeros_like(state.mask), cols, keep)
     return _paged_reclaim(dataclasses.replace(
         state, mask=torch.where(in_block, state.mask & keep_full, state.mask),
         length=state.length + add_len.to(torch.int32)))
@@ -383,7 +395,7 @@ class ModelState:
     pos_buf: torch.Tensor
     mask: torch.Tensor
     length: torch.Tensor
-    write_ptr: int
+    write_ptr: torch.Tensor       # () int32 on the state's device
     layers: Dict[str, Any]
 
     @property
@@ -407,7 +419,7 @@ def make_state(batch: int, max_len: int, layers: Dict[str, Any], *,
         pos_buf=torch.zeros((batch, max_len), **i32),
         mask=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
         length=torch.zeros((batch,), **i32),
-        write_ptr=0,
+        write_ptr=torch.zeros((), **i32),
         layers=layers)
 
 
@@ -419,46 +431,68 @@ def make_attn_cache(num_layers: int, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _check_fits(start: int, width: int, capacity: int) -> None:
+_HOST_CHECKS = contextvars.ContextVar("kv_cache_host_checks", default=True)
+
+
+@contextlib.contextmanager
+def no_host_checks():
+    """Inside the fused cycle program: skip the overrun checks, which read
+    the contiguous write pointer on the host.  The router's capacity guard
+    rules the overrun out before the program runs."""
+    token = _HOST_CHECKS.set(False)
+    try:
+        yield
+    finally:
+        _HOST_CHECKS.reset(token)
+
+
+def _check_fits(start: torch.Tensor, width: int, capacity: int) -> None:
+    """Per-op path only: one host read of a device offset."""
+    if not _HOST_CHECKS.get():
+        return
+    start = int(start)
     if start < 0 or start + width > capacity:
         raise ValueError(f"slots [{start}, {start + width}) overrun the "
                          f"contiguous state's {capacity} slots")
 
 
-def _put_cols(buf: torch.Tensor, start: int, vals: torch.Tensor):
-    out = buf.clone()
-    out[:, start:start + vals.shape[1]] = vals.to(buf.dtype)
-    return out
+def _cols(start: torch.Tensor, width: int, capacity: int) -> torch.Tensor:
+    """The shared slots ``[start, start + width)`` as an index vector, the
+    start clamped to fit as the reference's ``dynamic_update_slice``
+    clamps it (``_check_fits`` rules that out on the per-op path)."""
+    start = torch.as_tensor(start).clamp(0, max(capacity - width, 0))
+    return start + torch.arange(width, device=start.device)
 
 
 def contiguous_append_tokens(state: ModelState, tokens: torch.Tensor,
                              valid: torch.Tensor,
                              spec_depth: Optional[torch.Tensor] = None):
-    """Every row writes the shared slots ``[P, P+T)``; returns (new_state,
-    q_pos (B, T), P).  An append past capacity raises (the router's
-    capacity guard defragments or re-prefills before that)."""
+    """Every row writes the shared slots ``[P, P+T)`` in place; returns
+    (new_state, q_pos (B, T), P as a device scalar).  An append past
+    capacity raises on the per-op path (the router's capacity guard
+    defragments or re-prefills before that)."""
     T = tokens.shape[1]
     P = state.write_ptr
     _check_fits(P, T, state.capacity)
     q_pos, adv = _append_positions(state, valid, spec_depth)
-    new = dataclasses.replace(
-        state,
-        token_buf=_put_cols(state.token_buf, P, tokens),
-        pos_buf=_put_cols(state.pos_buf, P, q_pos),
-        mask=_put_cols(state.mask, P, valid),
-        length=state.length + adv,
-        write_ptr=P + T)
+    cols = _cols(P, T, state.capacity)
+    state.token_buf.index_copy_(1, cols, tokens.to(torch.int32))
+    state.pos_buf.index_copy_(1, cols, q_pos)
+    state.mask.index_copy_(1, cols, valid.to(torch.bool))
+    new = dataclasses.replace(state, length=state.length + adv,
+                              write_ptr=P + T)
     return new, q_pos, P
 
 
 def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,
-             k_new: torch.Tensor, v_new: torch.Tensor, slot_start: int):
+             k_new: torch.Tensor, v_new: torch.Tensor,
+             slot_start: torch.Tensor):
     """Write (B, T, Hkv, hd) into one layer's (B, S, Hkv, hd) caches in
-    place at ``[slot_start, slot_start + T)``."""
-    T = k_new.shape[1]
-    _check_fits(slot_start, T, cache_k.shape[1])
-    cache_k[:, slot_start:slot_start + T] = k_new.to(cache_k.dtype)
-    cache_v[:, slot_start:slot_start + T] = v_new.to(cache_v.dtype)
+    place at ``[slot_start, slot_start + T)`` (the append's checked
+    start)."""
+    cols = _cols(slot_start, k_new.shape[1], cache_k.shape[1])
+    cache_k.index_copy_(1, cols, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, cols, v_new.to(cache_v.dtype))
     return cache_k, cache_v
 
 
@@ -472,27 +506,29 @@ def logical_rollback(state: ModelState, r: torch.Tensor) -> ModelState:
 
 def physical_reclaim(state: ModelState) -> ModelState:
     """Rewind the shared pointer past the invalid suffix common to all
-    rows (the reference's Eq. 9 adaptation; one host read)."""
-    slot_ids = torch.arange(state.capacity, device=state.device)
-    last = int(torch.where(state.mask, slot_ids[None, :], -1).max())
-    return dataclasses.replace(state,
-                               write_ptr=min(state.write_ptr, last + 1))
+    rows (the reference's Eq. 9 adaptation), on the device."""
+    slot_ids = torch.arange(state.capacity, dtype=torch.int32,
+                            device=state.device)
+    last = torch.where(state.mask, slot_ids[None, :], -1).amax()
+    return dataclasses.replace(
+        state, write_ptr=torch.minimum(state.write_ptr, last + 1))
 
 
 def contiguous_resolve_tree(state: ModelState, num_nodes: int,
                             keep: torch.Tensor,
                             add_len: torch.Tensor) -> ModelState:
-    """Settle the tree block in the last ``num_nodes`` shared slots: keep
-    the winning-path nodes, mask dead branches (holes until
-    ``defragment``), advance ``length``, rewind the pointer.  Inactive
-    rows' entries in the block were appended masked, so no gate is
-    needed."""
+    """Settle the tree block in the last ``num_nodes`` shared slots (mask
+    written in place): keep the winning-path nodes, mask dead branches
+    (holes until ``defragment``), advance ``length``, rewind the pointer.
+    Inactive rows' entries in the block were appended masked, so no gate
+    is needed."""
     start = state.write_ptr - num_nodes
     _check_fits(start, num_nodes, state.capacity)
-    block = state.mask[:, start:state.write_ptr] & keep.to(torch.bool)
+    cols = _cols(start, num_nodes, state.capacity)
+    state.mask.index_copy_(1, cols,
+                           state.mask[:, cols] & keep.to(torch.bool))
     return physical_reclaim(dataclasses.replace(
-        state, mask=_put_cols(state.mask, start, block),
-        length=state.length + add_len.to(torch.int32)))
+        state, length=state.length + add_len.to(torch.int32)))
 
 
 def contiguous_free_rows(state: ModelState, rows: torch.Tensor) -> ModelState:
@@ -527,7 +563,7 @@ def defragment(state: ModelState) -> ModelState:
         pos_buf=torch.where(new_mask, torch.gather(state.pos_buf, 1, order),
                             0),
         mask=new_mask,
-        write_ptr=int(n_valid.max()),
+        write_ptr=n_valid.amax(),
         layers={n: gather_cache(x) for n, x in state.layers.items()})
 
 
@@ -537,7 +573,8 @@ def defragment(state: ModelState) -> ModelState:
 def append_tokens(state, tokens: torch.Tensor, valid: torch.Tensor,
                   spec_depth: Optional[torch.Tensor] = None):
     """(new_state, q_pos (B, T), slot): ``slot`` is the (B, T) row-local
-    slots on a paged state, the shared start slot (int) otherwise."""
+    slots on a paged state, the shared start slot (a device scalar)
+    otherwise."""
     if isinstance(state, PagedModelState):
         return paged_append_tokens(state, tokens, valid, spec_depth)
     return contiguous_append_tokens(state, tokens, valid, spec_depth)

@@ -6,6 +6,7 @@ linear weights are (in, out), attention tensors (B, T, H, D).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -38,12 +39,20 @@ def rope_freqs(head_dim: int, theta: float,
                   ** exponent)
 
 
+@functools.lru_cache(maxsize=None)
+def _freqs_on(head_dim: int, theta: float,
+              device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` built once per device: the forward then uploads
+    nothing from the host (a captured program may not)."""
+    return rope_freqs(head_dim, theta, device)
+
+
 def rope_tables(positions: torch.Tensor, theta: float, head_dim: int):
     """(cos, sin) each (B, T, 1, D/2) for ``apply_rope``.  Invalid entries
     carry the append's far-future sentinel position; their values are
     finite and never attended."""
     ang = (positions.float()[..., None]
-           * rope_freqs(head_dim, theta, positions.device))
+           * _freqs_on(head_dim, float(theta), positions.device))
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
@@ -69,26 +78,30 @@ def build_attention_mask(cache_mask: torch.Tensor, kv_positions: torch.Tensor,
 
 def overlay_block_mask(m: torch.Tensor, cache_mask: torch.Tensor,
                        block_attend: torch.Tensor,
-                       region_start: int) -> torch.Tensor:
+                       region_start) -> torch.Tensor:
     """Overwrite the mask columns of a speculative tree region with its
     static ancestor-or-self override (contiguous state).  Siblings share
     a logical position, so positional causality alone would let a node
     see non-ancestors at shallower depth.
 
     m (B, T, S); cache_mask (B, S) post-append validity; block_attend
-    (T, R); region_start: first slot of the region ``[start, start+R)``.
-    The reference's ``dynamic_slice`` clamps a region that overruns the
-    buffer; here that raises."""
+    (T, R); region_start: first slot of the region ``[start, start+R)``,
+    an int or a device scalar (the contiguous state's write offset, never
+    read on the host).  The reference's ``dynamic_slice`` clamps a region
+    that overruns the buffer; an int start that overruns raises here (a
+    device start comes from an append that was checked, or that the
+    router's capacity guard made fit)."""
     T, R = block_attend.shape
-    S = cache_mask.shape[1]
-    if region_start < 0 or region_start + R > S:
-        raise ValueError(f"tree region [{region_start}, {region_start + R})"
-                         f" does not fit {S} slots")
-    region_valid = cache_mask[:, region_start:region_start + R]   # (B, R)
-    m = m.clone()
-    m[:, :, region_start:region_start + R] = (block_attend[None]
-                                              & region_valid[:, None, :])
-    return m
+    B, S = cache_mask.shape
+    if isinstance(region_start, int):
+        if region_start < 0 or region_start + R > S:
+            raise ValueError(f"tree region [{region_start}, "
+                             f"{region_start + R}) does not fit {S} slots")
+        cols = torch.arange(region_start, region_start + R, device=m.device)
+    else:
+        cols = region_start + torch.arange(R, device=m.device)
+    return overlay_block_mask_at(m, cache_mask, block_attend,
+                                 cols[None, :].expand(B, R))
 
 
 def overlay_block_mask_at(m: torch.Tensor, cache_mask: torch.Tensor,

@@ -19,6 +19,11 @@ depth (-1 = committed-stream token) and ``spec_attend`` (T, R) is the
 static ancestor-or-self override of the attention columns of the cycle's
 tree region — the last R slots written after this append (earlier draft
 levels of the same cycle sit right before this block).
+
+``forward_cached`` reads no tensor on the host and uploads none, on
+either state (the contiguous state's overrun check aside, which
+``kv_cache.no_host_checks`` turns off), so the fused cycle captures it
+in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -159,8 +164,8 @@ def forward_cached(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 mask, state.mask, spec_attend,
                 slot + tokens.shape[1] - spec_attend.shape[1])
     # paged: the pool slots of the new entries, planned once per forward
-    where = (kvc.scatter_plan(kvc.physical_slots(state, slot)) if paged
-             else slot)
+    where = (kvc.scatter_plan(state, kvc.physical_slots(state, slot))
+             if paged else slot)
     rope = nn.rope_tables(q_pos, cfg.rope_theta, cfg.head_dim)
     caches = state.layers
     for i in range(cfg.num_layers):

@@ -126,17 +126,34 @@ def test_serving_and_output_phase_rehearsal():
     serving = chip_smoke.phase_serving("cpu", chain, dtype=torch.float32,
                                        n_prompts=3, prompt_len=8,
                                        new_tokens=6)
-    assert set(serving["runs"]) == {"session"} | set(
+    per_op = {f"{label}_per_op" for label in chip_smoke.PER_OP_TWINS}
+    assert set(serving["runs"]) == {"session"} | per_op | set(
         chip_smoke.serving_runs(("a", "b", "c")))
     assert {"paged_tree", "adaptive_tree", "contiguous_linear",
             "contiguous_tree"} <= set(serving["runs"])
     assert all(n == 0 for n in serving["launches"].values())
     assert all(all(v) for v in
                serving["stream_equal_to_fixed_chain"].values())
+    for label, rec in serving["runs"].items():
+        if label == "session":
+            continue
+        fused = rec["fused"]
+        if label in per_op:
+            assert fused["groups_fused"] == 0
+            assert fused["host_syncs_per_cycle"] > 1.0
+        else:
+            assert fused["groups_fused"] > 0
+        assert fused["graph_captures"] == 0          # no graphs off the card
+    assert serving["sync_debug"] == {
+        label: {"host_syncs": 1, "fused_groups": 1, "sync_debug_mode": None}
+        for label in chip_smoke.PER_OP_TWINS}
     out = chip_smoke.phase_output("cpu", chain, n_prompts=3, prompt_len=8,
                                   new_tokens=6)
-    assert set(out) == set(chip_smoke.OUTPUT_PATHS)
+    assert set(out) == set(chip_smoke.OUTPUT_PATHS) | {
+        f"{p}_per_op" for p in chip_smoke.OUTPUT_PATHS}
     assert all(r["identical_rows"] == 3 for r in out.values())
+    assert all(out[p]["identical_rows_fused_vs_per_op"] == 3
+               for p in chip_smoke.OUTPUT_PATHS)
     session = out["twin_contiguous_session"]
     assert session["defragments"] > 0
     assert min(session["commits_per_active_cycle"]) > 1.0

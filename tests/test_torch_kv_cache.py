@@ -1,6 +1,8 @@
 """The port's paged state against the reference's: one op sequence
 (append with K/V writes, rollback, free_rows, append) applied to both
-gives equal index buffers, block tables, free stacks and pool contents."""
+gives equal index buffers, block tables, free stacks and pool contents
+(the port's pools end in a spare block that takes the scatter's dropped
+writes; the blocks before it are compared)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -42,7 +44,7 @@ def _append(js, ts, tokens, valid, rng):
     jphys = jkv.physical_slots(js, jslots)
     tphys = tkv.physical_slots(ts, tslots)
     np.testing.assert_array_equal(tphys.numpy(), np.asarray(jphys))
-    plan = tkv.scatter_plan(tphys)
+    plan = tkv.scatter_plan(ts, tphys)
     B, T = tokens.shape
     jk, jv = dict(js.layers), dict(js.layers)
     new_k, new_v = [], []
@@ -69,8 +71,9 @@ def _assert_same(js, ts):
     np.testing.assert_array_equal(ts.free_stack.numpy()[:top],
                                   np.asarray(js.free_stack)[:top])
     for name in ("k", "v"):
-        np.testing.assert_array_equal(ts.layers[name].numpy(),
-                                      np.asarray(js.layers[name]))
+        pool = np.asarray(js.layers[name])
+        np.testing.assert_array_equal(
+            ts.layers[name].numpy()[:, :pool.shape[1]], pool)
     np.testing.assert_array_equal(tkv.physical_view_index(ts).numpy(),
                                   np.asarray(jkv.physical_view_index(js)))
     assert int(tkv.blocks_in_use(ts)) == int(jkv.blocks_in_use(js))

@@ -1,8 +1,11 @@
 """The port's ChainRouter / RouterSession on the quickstart pool, with the
 reference's weights: the same greedy streams as the JAX router, the
 paper's output guarantee (speculative == target-only greedy), the
-SimScore probe's DTV, and the options the port rejects.  Token trees and
-the contiguous state are in ``test_torch_tree_router.py``."""
+SimScore probe's DTV, and the options the port rejects.  The streams
+are checked on the fused default and on the per-op path
+(``fused=False``).  Token trees and the contiguous state are in
+``test_torch_tree_router.py``, the fused cycle's own contract in
+``test_torch_fused_cycle.py``."""
 import numpy as np
 import pytest
 import torch
@@ -27,7 +30,7 @@ def target_only(pools):
     _, tpool, _ = pools
     prompt, plens = quickstart_prompt()
     return ChainRouter(tpool, TARGET, adaptive=False, fixed_chain=(TARGET,),
-                       fixed_window=1, device="cpu").generate(
+                       fixed_window=1, fused=False, device="cpu").generate(
                            prompt, plens, 16, request_id="ref")
 
 
@@ -35,14 +38,20 @@ def _streams(out):
     return [g.tolist() for g in out.generated]
 
 
-def test_adaptive_generate_matches_jax_router(pools):
+FUSED = pytest.mark.parametrize("fused", [True, False],
+                                ids=["fused", "per-op"])
+
+
+@FUSED
+def test_adaptive_generate_matches_jax_router(pools, fused):
     jpool, tpool, _ = pools
     prompt, plens = quickstart_prompt()
     want = JaxRouter(jpool, TARGET, greedy=True, adaptive=True,
                      fused=False).generate(prompt, plens, 16,
                                            request_id="q")
-    got = ChainRouter(tpool, TARGET, adaptive=True, device="cpu").generate(
-        prompt, plens, 16, request_id="q")
+    got = ChainRouter(tpool, TARGET, adaptive=True, fused=fused,
+                      device="cpu").generate(prompt, plens, 16,
+                                             request_id="q")
     assert _streams(got) == _streams(want)
 
 
@@ -53,28 +62,32 @@ def test_adaptive_generate_matches_jax_router(pools):
          fixed_window=3),
     dict(adaptive=False, fixed_chain=("mid-m", TARGET), fixed_window=6),
 ], ids=["adaptive", "2-level-W2", "3-level-W3", "mid-draft-W6"])
-def test_speculative_output_equals_target_only(pools, target_only, kw):
+@FUSED
+def test_speculative_output_equals_target_only(pools, target_only, kw,
+                                               fused):
     _, tpool, _ = pools
     prompt, plens = quickstart_prompt()
-    out = ChainRouter(tpool, TARGET, device="cpu", **kw).generate(
-        prompt, plens, 16, request_id="spec")
+    out = ChainRouter(tpool, TARGET, fused=fused, device="cpu",
+                      **kw).generate(prompt, plens, 16, request_id="spec")
     assert _streams(out) == _streams(target_only)
 
 
-def test_eos_cuts_each_stream_after_its_first_eos(pools, target_only):
+@FUSED
+def test_eos_cuts_each_stream_after_its_first_eos(pools, target_only, fused):
     _, tpool, _ = pools
     prompt, plens = quickstart_prompt()
     eos = int(target_only.generated[1][3])
     out = ChainRouter(tpool, TARGET, eos_token=eos, adaptive=False,
                       fixed_chain=("draft-s", "mid-m", TARGET),
-                      fixed_window=3, device="cpu").generate(
+                      fixed_window=3, fused=fused, device="cpu").generate(
                           prompt, plens, 16, request_id="eos")
     for got, ref in zip(_streams(out), _streams(target_only)):
         cut = ref.index(eos) + 1 if eos in ref else len(ref)
         assert got == ref[:cut]
 
 
-def test_session_mid_flight_admit_and_retire_stay_bit_exact(pools):
+@FUSED
+def test_session_mid_flight_admit_and_retire_stay_bit_exact(pools, fused):
     _, tpool, _ = pools
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 97, size=n).astype(np.int32)
@@ -84,10 +97,11 @@ def test_session_mid_flight_admit_and_retire_stay_bit_exact(pools):
     for i, p in enumerate(prompts):
         padded[i, :len(p)] = p
     ref = ChainRouter(tpool, TARGET, adaptive=False, fixed_chain=(TARGET,),
-                      fixed_window=1, device="cpu").generate(
+                      fixed_window=1, fused=False, device="cpu").generate(
                           padded, np.array([8, 5, 7]), budget,
                           request_id="ref3")
-    router = ChainRouter(tpool, TARGET, adaptive=True, device="cpu")
+    router = ChainRouter(tpool, TARGET, adaptive=True, fused=fused,
+                         device="cpu")
     sess = router.start_session(num_slots=3, max_len=40, session_id="s")
     sess.admit(0, prompts[0], budget)
     sess.admit(1, prompts[1], budget,
@@ -135,8 +149,7 @@ def test_probe_dtv_matches_reference_pairwise_dtv_rows(pools):
         np.testing.assert_allclose(got[pair], want[pair], atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(fused=True), dict(greedy=False)],
-                         ids=["fused", "sampling"])
+@pytest.mark.parametrize("kw", [dict(greedy=False)], ids=["sampling"])
 def test_unported_paths_raise(pools, kw):
     _, tpool, _ = pools
     with pytest.raises(NotImplementedError, match="not ported"):

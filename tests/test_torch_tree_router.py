@@ -3,7 +3,8 @@ ChainRouter / RouterSession, on the quickstart pool plus a ``twin`` of the
 target (same weights, another name) so that drafts are accepted and tree
 blocks are settled with kept nodes.  Greedy streams equal target-only
 decoding and the JAX router's streams; on fixed chains the per-cycle
-commits equal the JAX router's too."""
+commits of the per-op path equal the JAX router's too.  The session
+tests run on the fused default and on the per-op path."""
 import jax
 import numpy as np
 import pytest
@@ -36,7 +37,7 @@ def target_only(pools):
     _, tpool = pools
     prompt, plens = quickstart_prompt()
     return ChainRouter(tpool, TARGET, adaptive=False, fixed_chain=(TARGET,),
-                       fixed_window=1, device="cpu").generate(
+                       fixed_window=1, fused=False, device="cpu").generate(
                            prompt, plens, 16, request_id="ref")
 
 
@@ -65,8 +66,9 @@ def test_streams_equal_target_only_and_the_jax_router(pools, target_only,
     kw = CASES[case]
     adaptive = "fixed_chain" not in kw
     prompt, plens = quickstart_prompt()
-    got = ChainRouter(tpool, TARGET, adaptive=adaptive, device="cpu",
-                      **kw).generate(prompt, plens, 16, request_id="t")
+    got = ChainRouter(tpool, TARGET, adaptive=adaptive, fused=False,
+                      device="cpu", **kw).generate(prompt, plens, 16,
+                                                   request_id="t")
     want = JaxRouter(jpool, TARGET, adaptive=adaptive, fused=False,
                      **kw).generate(prompt, plens, 16, request_id="t")
     assert _streams(got) == _streams(target_only) == _streams(want)
@@ -78,8 +80,13 @@ def test_streams_equal_target_only_and_the_jax_router(pools, target_only,
         assert got.steps < 16           # the twin's drafts are accepted
 
 
+FUSED = pytest.mark.parametrize("fused", [True, False],
+                                ids=["fused", "per-op"])
+
+
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
-def test_branching_one_tree_is_bit_identical_to_linear(pools, paged):
+@FUSED
+def test_branching_one_tree_is_bit_identical_to_linear(pools, paged, fused):
     """On a draft -> target chain a 1x1x1 tree is the window-3 linear cycle:
     same streams, same commits per cycle.  (Deeper chains differ by
     design: tree levels prune, linear levels splice their corrections.)"""
@@ -87,7 +94,8 @@ def test_branching_one_tree_is_bit_identical_to_linear(pools, paged):
     prompt, plens = quickstart_prompt()
     chain = (TWIN, TARGET)
     outs = [ChainRouter(tpool, TARGET, adaptive=False, fixed_chain=chain,
-                        paged=paged, device="cpu", **kw).generate(
+                        paged=paged, fused=fused, device="cpu",
+                        **kw).generate(
                             prompt, plens, 16, request_id="b1")
             for kw in (dict(fixed_tree="1x1x1"), dict(fixed_window=3))]
     assert _streams(outs[0]) == _streams(outs[1])
@@ -101,14 +109,16 @@ def _padded_reference(tpool, prompts, budget):
     for i, p in enumerate(prompts):
         padded[i, :len(p)] = p
     return ChainRouter(tpool, TARGET, adaptive=False, fixed_chain=(TARGET,),
-                       fixed_window=1, device="cpu").generate(
+                       fixed_window=1, fused=False, device="cpu").generate(
                            padded, np.array([len(p) for p in prompts]),
                            budget, request_id="ref3")
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@FUSED
 def test_session_with_tree_and_linear_slots_and_midflight_admit(pools,
-                                                                paged):
+                                                                paged,
+                                                                fused):
     _, tpool = pools
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, 97, size=n).astype(np.int32)
@@ -116,7 +126,7 @@ def test_session_with_tree_and_linear_slots_and_midflight_admit(pools,
     budget = 10
     ref = _padded_reference(tpool, prompts, budget)
     router = ChainRouter(tpool, TARGET, adaptive=True, paged=paged,
-                         tree_shapes=("2x2x1",), device="cpu")
+                         fused=fused, tree_shapes=("2x2x1",), device="cpu")
     sess = router.start_session(num_slots=3, max_len=48, session_id="s")
     sess.admit(0, prompts[0], budget, chain=(TWIN, TARGET), tree="2x2x1")
     sess.admit(1, prompts[1], budget, chain=("draft-s", TWIN, TARGET),
@@ -134,7 +144,9 @@ def test_session_with_tree_and_linear_slots_and_midflight_admit(pools,
     sess.close()
 
 
-def test_contiguous_session_defragments_under_capacity_pressure(pools):
+@FUSED
+def test_contiguous_session_defragments_under_capacity_pressure(pools,
+                                                                fused):
     """A contiguous session whose rows diverge leaks masked holes into the
     shared buffer; with a small ``max_len`` the capacity guard has to
     force-defragment, and the streams stay target-only."""
@@ -145,7 +157,8 @@ def test_contiguous_session_defragments_under_capacity_pressure(pools):
     ref = _padded_reference(tpool, prompts, budget)
     router = ChainRouter(tpool, TARGET, adaptive=False,
                          fixed_chain=("draft-s", TWIN, TARGET),
-                         fixed_tree="2x2x1", paged=False, device="cpu")
+                         fixed_tree="2x2x1", paged=False, fused=fused,
+                         device="cpu")
     sess = router.start_session(num_slots=2, max_len=36, session_id="d")
     for s, p in enumerate(prompts):
         sess.admit(s, p, budget)
